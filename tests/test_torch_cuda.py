@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from text_alignment_tpu_torch import _kernels
+from text_alignment_tpu_torch.align import nw_kernel, nw_torch
 from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.lineest_kernel import (
@@ -76,3 +77,106 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):  # Wh of ns=160 exceeds shared memory
         bidir_scan(big, torch.zeros((2, 160, 640), device=cuda),
                    torch.zeros((2, 3, 160), device=cuda))
+
+
+def _nw_batch(pairs, dev):
+    """Lane-layout tensors of pairs (sentinels appended) on the card."""
+    arrays = nw_torch.lane_batch([(t + [" "], o + [" "]) for t, o in pairs])
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _nw_pair(n, m, seed):
+    rng = np.random.default_rng(seed)
+    a = list("abcdefgh ")
+    return ([a[k] for k in rng.integers(0, len(a), n)],
+            [a[k] for k in rng.integers(0, len(a), m)])
+
+
+def _valid_equal(a, b, nts, nos):
+    for k in range(a.shape[0]):
+        ii = torch.arange(int(nts[k]), device=a.device)[:, None]
+        jj = torch.arange(int(nos[k]), device=a.device)[None, :]
+        if not torch.equal(a[k, ii + jj, ii], b[k, ii + jj, ii]):
+            return False
+    return True
+
+
+_NW_ROW = [8, -4, -7, -7, -3, 0, -1, -1]
+
+
+@pytest.mark.parametrize("n,m", [(4095, 4095), (300, 129), (127, 1000),
+                                 (2047, 2400)])
+def test_nw_fill_kernel_matches_plain(cuda, n, m):
+    t, o, nts, nos = _nw_batch([_nw_pair(n, m, n + m)], cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    before = _kernels.launches["nw_fill"]
+    got = nw_kernel.fill(t, o, row)
+    assert _kernels.launches["nw_fill"] == before + 1
+    ref = nw_kernel.fill_reference(t, o, row)
+    torch.cuda.synchronize()
+    assert _valid_equal(got, ref, nts, nos)
+
+
+@pytest.mark.parametrize("mode", ["shared_row", "per_pair_shared_feed",
+                                  "per_pair_own_feeds"])
+def test_nw_fill_batched_kernel_matches_plain(cuda, mode):
+    if mode == "per_pair_shared_feed":
+        pairs = [_nw_pair(300, 280, 1)] * 8
+    else:
+        pairs = [_nw_pair(150 + 40 * k, 330 - 30 * k, k) for k in range(6)]
+    t, o, nts, nos = _nw_batch(pairs, cuda)
+    B = t.shape[0]
+    if mode == "shared_row":
+        params = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    else:
+        rng = np.random.default_rng(B)
+        rows = np.concatenate([rng.integers(1, 12, (B, 1)),
+                               -rng.integers(0, 10, (B, 5)),
+                               np.full((B, 2), -1)], axis=1)
+        params = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    if mode == "per_pair_shared_feed":
+        o = o[:1].contiguous()
+    before = _kernels.launches["nw_fill_batched"]
+    got = nw_kernel.fill_batched(t, o, params)
+    assert _kernels.launches["nw_fill_batched"] == before + 1
+    ref = nw_kernel.fill_reference(t, o, params)
+    torch.cuda.synchronize()
+    assert _valid_equal(got, ref, nts, nos)
+
+
+def test_nw_traceback_kernel_matches_plain(cuda):
+    pairs = [_nw_pair(1100 + 150 * k, 1900 - 140 * k, 50 + k)
+             for k in range(6)]
+    t, o, nts, nos = _nw_batch(pairs, cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    packed = nw_kernel.fill_batched(t, o, row)
+    before = _kernels.launches["nw_traceback"]
+    w1 = nw_kernel.traceback_batched(packed, nts, nos)
+    assert _kernels.launches["nw_traceback"] == before + 1
+    w0 = nw_kernel.traceback_reference(packed, nts, nos)
+    torch.cuda.synchronize()
+    assert torch.equal(w1[:, :3], w0[:, :3])
+    for b in range(len(pairs)):
+        k = int(w1[b, 0])
+        assert torch.equal(w1[b, 3:3 + k], w0[b, 3:3 + k])
+
+
+def test_nw_wrappers_reject_bad_inputs(cuda):
+    t, o, nts, nos = _nw_batch([_nw_pair(100, 100, 0)] * 3, cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # int64 ids
+        nw_kernel.fill_batched(t.long(), o, row)
+    with pytest.raises(ValueError):  # a 6-value scoring row
+        nw_kernel.fill_batched(t, o, row[:, :6].contiguous())
+    with pytest.raises(ValueError):  # 2 OCR rows for 3 pairs
+        nw_kernel.fill_batched(t, o[:2].contiguous(), row)
+    with pytest.raises(ValueError):  # the single-pair entry takes one pair
+        nw_kernel.fill(t, o, row)
+    with pytest.raises(ValueError):  # over 32 lanes x 1024 threads
+        nw_kernel.fill(torch.zeros((1, 65536), dtype=torch.int32,
+                                   device=cuda), o[:1].contiguous(), row)
+    packed = nw_kernel.fill_batched(t, o, row)
+    with pytest.raises(ValueError):  # No past the bucket
+        nw_kernel.traceback_batched(packed, nts, nos + 1000)
+    with pytest.raises(ValueError):  # int64 sizes
+        nw_kernel.traceback_batched(packed, nts.long(), nos)

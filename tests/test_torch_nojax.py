@@ -1,7 +1,8 @@
 """The port needs no JAX: in a fresh interpreter whose import system refuses
 ``jax`` and ``jaxlib``, text_alignment_tpu_torch imports and process() runs
 a small synthetic page end to end on the CPU, from a .pyrnn.gz model and
-through the device normalizer's plain versions."""
+through the device normalizer's plain versions, and the NW device path's
+plain versions align a pair as the host fill does."""
 
 import os
 import subprocess
@@ -28,6 +29,9 @@ _SCRIPT = textwrap.dedent("""
     torch.set_num_threads(1)
 
     from text_alignment_tpu_torch import _reuse
+    from text_alignment_tpu_torch import evaluate  # noqa: F401
+    from text_alignment_tpu_torch.align import nw_kernel  # noqa: F401
+    from text_alignment_tpu_torch.align import perform_alignment
     from text_alignment_tpu_torch.models.lstm import (
         init_params_np, params_from_np)
     from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
@@ -54,6 +58,9 @@ _SCRIPT = textwrap.dedent("""
                        verbose=False, device="cpu")
     js = to_JSON_dict(injected[0], injected[2])
     assert js["syl_boxes"], js
+    t, o = list(page.transcript), list(page.transcript[::-1])
+    assert (perform_alignment(t, o, backend="device", device="cpu")
+            == perform_alignment(t, o, backend="host"))
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("NOJAX_OK", rec_out is None or len(rec_out[0]),
           dev_out is None or len(dev_out[0]), len(js["syl_boxes"]))

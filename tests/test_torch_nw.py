@@ -1,0 +1,329 @@
+"""The port's NW path against the JAX package's, on the CPU.
+
+The plain versions of the port's kernels (the wavefront fill, the batched
+fill, the pointer walk) are held to the XLA scan of ``nw_jax`` and to the
+host fill, and the port's entry points (``perform_alignment``,
+``align_pairs``, ``align_grid``, ``grid_search``) to the JAX package's on
+the same inputs, made from seeds. Everything is integer (or the float32 the
+XLA scan also uses), so every comparison is exact. The JAX side runs its
+XLA scan and its host fill: the Pallas NW kernels take about a minute per
+bucket in interpret mode.
+"""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from text_alignment_tpu.align import perform_alignment as jax_align
+from text_alignment_tpu.align import resolve_scoring
+from text_alignment_tpu.align import nw_jax
+from text_alignment_tpu.align.nw_pallas import _token_ids as pallas_ids
+from text_alignment_tpu.evaluate import grid_search as jax_grid_search
+from text_alignment_tpu.evaluate import scoring_grid
+from text_alignment_tpu.pipeline.preprocess import PreprocParams
+from text_alignment_tpu.synth import corrupt_ocr, make_page, ocr_with_spaces
+from text_alignment_tpu_torch.align import api, nw_kernel, nw_torch
+from text_alignment_tpu_torch.align import perform_alignment
+from text_alignment_tpu_torch.evaluate import grid_search
+
+torch.set_num_threads(1)
+
+SYNTH_PARAMS = PreprocParams(filter_size=8)
+
+
+def random_pair(rng, n, m, alphabet="abcdefg "):
+    return ([rng.choice(alphabet) for _ in range(n)],
+            [rng.choice(alphabet) for _ in range(m)])
+
+
+def plain_packed(t, o, sc):
+    """The port's plain fill of one pair (sentinels included), through the
+    route its scoring form takes on the device."""
+    L, NoP = nw_torch._bucket(len(t)), nw_torch._bucket(len(o))
+    if nw_torch.kernel_form(sc):
+        ti, oi = nw_torch._token_ids(t, o)
+        row, S = nw_torch.kernel_params(sc), None
+    else:
+        ti, oi, row, S = nw_torch._encode(t, o, sc)
+        S = None if S is None else torch.from_numpy(S)
+    tt = torch.from_numpy(nw_torch._ext(ti, L)[None])
+    oo = torch.from_numpy(nw_torch._ext(oi, NoP)[None])
+    params = torch.from_numpy(row[None])
+    if S is None and nw_torch.kernel_form(sc):
+        return nw_kernel.fill(tt, oo, params)[0].numpy()
+    return nw_kernel.fill_reference(tt, oo, params, S)[0].numpy()
+
+
+def valid_cells(packed, Nt, No):
+    i, j = np.meshgrid(np.arange(Nt), np.arange(No), indexing="ij")
+    return packed[i + j, i]
+
+
+FORMS = {
+    "default": (None, True),
+    "four": ([10, -5, -7, -7], True),
+    "six_asym": ([5, -4, -2, -7, 0, -3], True),
+    "loose": (None, False),
+    "callable": ([lambda a, b: 6 if a == b else (-1 if " " in (a, b) else -3),
+                  -7, -5, -2, -1], True),
+    "float": ([8.5, -4.25, -7, -7, -3, 0], True),
+}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("n,m", [(127, 129), (40, 70)])
+def test_plain_fill_matches_xla_scan(form, n, m):
+    """Pointer bytes of every valid cell equal nw_jax.fill_jax_packed's,
+    across the 128 -> 256 bucket jump (127/129 characters plus sentinels)
+    and under every scoring form."""
+    rng = random.Random(n * 7 + m)
+    system, strict = FORMS[form]
+    t, o = random_pair(rng, n, m)
+    t, o = t + [" "], o + [" "]
+    sc = resolve_scoring(system, strict=strict)
+    ref = nw_jax.fill_jax_packed(t, o, sc)
+    got = plain_packed(t, o, sc)
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(valid_cells(got, len(t), len(o)),
+                                  valid_cells(ref, len(t), len(o)))
+
+
+def _bucket_batch(pairs):
+    t, o, nts, nos = nw_torch.lane_batch([(t + [" "], o + [" "])
+                                          for t, o in pairs])
+    return torch.from_numpy(t), torch.from_numpy(o), nts, nos
+
+
+def test_plain_batched_fill_mixed_lengths():
+    """A mixed-length batch of one bucket under one scoring row equals each
+    pair's own XLA scan fill on its valid cells."""
+    rng = random.Random(3)
+    pairs = [random_pair(rng, n, m) for n, m in
+             [(100, 60), (70, 120), (126, 126), (90, 3)]]
+    t, o, nts, nos = _bucket_batch(pairs)
+    sc = resolve_scoring(None)
+    row = torch.from_numpy(nw_torch.kernel_params(sc)[None])
+    got = nw_kernel.fill_batched(t, o, row).numpy()
+    for b, (tp, op) in enumerate(pairs):
+        ref = nw_jax.fill_jax_packed(tp + [" "], op + [" "], sc)
+        np.testing.assert_array_equal(valid_cells(got[b], nts[b], nos[b]),
+                                      valid_cells(ref, nts[b], nos[b]))
+
+
+def test_plain_batched_fill_per_pair_shared_feed():
+    """One OCR row shared by every pair and a scoring row per pair (the
+    grid search's mode) equals the XLA scan under each row."""
+    rng = random.Random(4)
+    tp, op = random_pair(rng, 90, 110)
+    rows = scoring_grid()[[0, 100, 364, 728]]
+    t, o, nts, nos = _bucket_batch([(tp, op)])
+    params = torch.from_numpy(np.concatenate(
+        [rows, np.full((4, 2), -1)], axis=1).astype(np.int32))
+    got = nw_kernel.fill_batched(t.expand(4, -1).contiguous(), o,
+                                 params).numpy()
+    for b, r in enumerate(rows):
+        ref = nw_jax.fill_jax_packed(tp + [" "], op + [" "],
+                                     resolve_scoring(list(r)))
+        np.testing.assert_array_equal(valid_cells(got[b], nts[0], nos[0]),
+                                      valid_cells(ref, nts[0], nos[0]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_traceback_matches_jax(seed):
+    """ops[:k], k, xpt and ypt of the plain walk equal
+    nw_jax._traceback_ops on the same pointers."""
+    rng = random.Random(seed)
+    t, o = random_pair(rng, 30 + 40 * seed, 90 - 25 * seed)
+    t, o = t + [" "], o + [" "]
+    sc = resolve_scoring([5, -4, -2, -7, 0, -3] if seed == 2 else None)
+    packed = nw_jax.fill_jax_packed(t, o, sc)
+    j_ops, j_k, j_x, j_y = (np.asarray(v) for v in nw_jax._traceback_ops(
+        jnp.asarray(packed), jnp.int32(len(t)), jnp.int32(len(o)),
+        packed.shape[0] + 1))
+    wire = nw_kernel.traceback_batched(
+        torch.from_numpy(np.array(packed[None])),
+        torch.tensor([len(t)], dtype=torch.int32),
+        torch.tensor([len(o)], dtype=torch.int32)).numpy()
+    ops, k, x, y = nw_torch.unwire(wire[0])
+    assert (int(k), int(x), int(y)) == (int(j_k), int(j_x), int(j_y))
+    np.testing.assert_array_equal(ops[:k], j_ops[:j_k])
+
+
+def test_plain_traceback_batch_of_mixed_lengths():
+    """The lock-step walk over a batch equals each pair's own walk."""
+    rng = random.Random(8)
+    pairs = [random_pair(rng, n, m) for n, m in [(50, 20), (10, 60), (64, 64)]]
+    t, o, nts, nos = _bucket_batch(pairs)
+    row = torch.from_numpy(nw_torch.kernel_params(resolve_scoring(None))[None])
+    packed = nw_kernel.fill_batched(t, o, row)
+    wire = nw_kernel.traceback_batched(
+        packed, torch.tensor(nts, dtype=torch.int32),
+        torch.tensor(nos, dtype=torch.int32)).numpy()
+    for b in range(len(pairs)):
+        one = nw_kernel.traceback_batched(
+            packed[b:b + 1].contiguous(),
+            torch.tensor(nts[b:b + 1], dtype=torch.int32),
+            torch.tensor(nos[b:b + 1], dtype=torch.int32)).numpy()[0]
+        k = wire[b, 0]
+        np.testing.assert_array_equal(wire[b, :3 + k], one[:3 + k])
+
+
+@pytest.mark.parametrize("trial", range(12))
+def test_device_host_and_jax_agree_on_random_scorings(trial):
+    """perform_alignment on a CPU device (the plain versions), the JAX
+    package's XLA backend and the host fill give the same alignment under
+    seeded random integer scorings (tests/test_nw.py's fuzz)."""
+    rng = random.Random(100 + trial)
+    system = [rng.randrange(1, 13), -rng.randrange(0, 11),
+              -rng.randrange(0, 9), -rng.randrange(0, 9),
+              -rng.randrange(0, 6), -rng.randrange(0, 6)]
+    strict = trial % 4 != 3
+    t, o = random_pair(rng, rng.randrange(2, 60), rng.randrange(2, 60))
+    dev = perform_alignment(t, o, system, backend="device", device="cpu",
+                            strict=strict)
+    host = perform_alignment(t, o, system, backend="host", strict=strict)
+    ref = jax_align(t, o, system, backend="jax", strict=strict)
+    assert dev == host == ref
+
+
+@pytest.mark.parametrize("backend", ["auto", "host"])
+def test_auto_on_a_cpu_device_takes_the_host_fill(monkeypatch, backend):
+    """On a CPU device "auto" stays on the host fill whatever the size, as
+    the JAX package does on a CPU platform."""
+    def refuse(*args):
+        raise AssertionError("the device fill ran")
+
+    monkeypatch.setattr(nw_kernel, "fill", refuse)
+    monkeypatch.setattr(nw_kernel, "fill_reference", refuse)
+    monkeypatch.setattr(api, "auto_device_min_cells", lambda: 0)
+    rng = random.Random(5)
+    t, o = random_pair(rng, 40, 50)
+    got = perform_alignment(t, o, backend=backend, device="cpu")
+    assert got == jax_align(t, o, backend="host")
+
+
+def test_device_routes_by_scoring_form():
+    """Integer match/mismatch takes the kernel route, callable and
+    non-integer scoring the plain wavefront."""
+    assert (api._device_align_ops(resolve_scoring(None))
+            is nw_torch.align_ops)
+    assert (api._device_align_ops(resolve_scoring(None, strict=False))
+            is nw_torch.align_ops)
+    for system in (FORMS["callable"][0], FORMS["float"][0]):
+        assert (api._device_align_ops(resolve_scoring(system))
+                is nw_torch.align_ops_plain)
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError):
+        perform_alignment(list("ab"), list("ab"), backend="jax")
+
+
+def test_align_pairs_matches_jax():
+    """align_pairs(min_device_cells=0) on a CPU device equals
+    align_pairs_jax(min_device_cells=0), over two buckets."""
+    rng = random.Random(11)
+    pairs = [random_pair(rng, n, m) for n, m in
+             [(8, 40), (40, 9), (90, 120), (130, 100), (60, 60)]]
+    sc = resolve_scoring(None)
+    got = nw_torch.align_pairs(pairs, sc, min_device_cells=0, device="cpu")
+    assert got == nw_jax.align_pairs_jax(pairs, sc, min_device_cells=0)
+    assert got == nw_torch.align_pairs(pairs, sc, device="cpu")  # host fill
+
+
+def test_align_pairs_leaves_callable_scoring_to_the_caller():
+    sc = resolve_scoring(FORMS["callable"][0])
+    assert nw_torch.align_pairs([(list("ab"), list("ba"))], sc) == [None]
+
+
+def test_align_grid_matches_jax():
+    """align_grid over 27 rows of the scoring grid equals align_grid_jax,
+    in two launches (a budget that holds 20 rows)."""
+    rng = random.Random(12)
+    t, o = random_pair(rng, 70, 85)
+    rows = scoring_grid()[::27]
+    assert len(rows) == 27
+    old = nw_torch.PTR_BUDGET
+    try:
+        nw_torch.PTR_BUDGET = 20 * 255 * 128
+        got = api.align_grid(t, o, rows, device="cpu")
+    finally:
+        nw_torch.PTR_BUDGET = old
+    assert got == nw_jax.align_grid_jax(t, o, rows)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2047, 2048, 2049, 2400,
+                               2561, 16383, 16384])
+def test_bucket_matches_jax(n):
+    assert nw_torch._bucket(n) == nw_jax._bucket(n)
+
+
+@pytest.mark.parametrize("t,o", [("abc d", "ab cd"),
+                                 (["ab", "c", "d"], ["c", "ab", "e"])])
+def test_token_ids_match_pallas(t, o):
+    for mine, theirs in zip(nw_torch._token_ids(list(t), list(o)),
+                            pallas_ids(list(t), list(o))):
+        np.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_replay_ops_matches_jax(seed):
+    rng = random.Random(seed)
+    t, o = random_pair(rng, 20 + 30 * seed, 50 - 10 * seed)
+    t, o = t + [" "], o + [" "]
+    ops, k, x, y = nw_torch.align_ops(t, o, resolve_scoring(None), "cpu")
+    assert (nw_torch.replay_ops(t, o, ops, k, x, y)
+            == nw_jax.replay_ops(t, o, ops, k, x, y))
+
+
+@pytest.mark.parametrize("L", [128, 1024, 2048, 2560, 8192, 16384])
+def test_fill_launch_shape_fits_a_block(L):
+    """The fill kernel's block for every bucket up to the 16383^2 bench
+    pair: at most 1024 threads, whole lanes per thread, shared memory
+    within one block's 227 KB."""
+    run = nw_kernel.lanes_per_thread(L)
+    assert L % run == 0 and L // run <= nw_kernel.MAX_THREADS
+    assert nw_kernel.fill_smem_bytes(L) <= nw_kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bad", ["sizes", "dtype", "rank"])
+def test_traceback_rejects_bad_inputs(bad):
+    packed = torch.zeros((1, 255, 128), dtype=torch.uint8)
+    nts = torch.tensor([10], dtype=torch.int32)
+    nos = torch.tensor([10], dtype=torch.int32)
+    if bad == "sizes":
+        nos = torch.tensor([200], dtype=torch.int32)
+    elif bad == "dtype":
+        nts = nts.long()
+    else:
+        packed = packed[0]
+    with pytest.raises(ValueError):
+        nw_kernel.traceback_batched(packed, nts, nos)
+
+
+def test_grid_search_matches_jax():
+    """The port's grid_search with the device grid fill on a CPU device
+    gives the JAX package's grid_search(grid_align="device") log, and the
+    port's host route the same."""
+    page = make_page(np.random.default_rng(21), n_lines=3,
+                     words_per_line=2)
+    inj = ocr_with_spaces(corrupt_ocr(np.random.default_rng(4),
+                                      page.char_boxes))
+    gt = [{"syl": c.char, "difficult": 0,
+           "ul": (c.ul[0] - 2, c.ul[1] - 2), "lr": (c.lr[0] + 2, c.lr[1] + 2)}
+          for c in page.char_boxes[:8]]
+    fixtures = [{"raw_image": page.image, "transcript": page.transcript,
+                 "gt_boxes": gt, "existing_ocr": inj,
+                 "preproc_params": SYNTH_PARAMS}]
+    rows = scoring_grid()[::81]
+    assert len(rows) == 9
+    kw = dict(shuffle=False, backend="host", verbose=False, params_list=rows)
+    ref, ref_ranked = jax_grid_search(fixtures, grid_align="device", **kw)
+    got, ranked = grid_search(fixtures, grid_align="device", device="cpu",
+                              **kw)
+    assert got == ref and ranked == ref_ranked
+    host, _ = grid_search(fixtures, grid_align="host", device="cpu", **kw)
+    assert host == ref

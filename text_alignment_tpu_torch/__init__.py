@@ -4,11 +4,18 @@ Aligns a chant transcript to the text layer of a manuscript page and emits
 the reference's ``syl_boxes`` JSON, like ``text_alignment_tpu``, whose JAX
 package stays beside it as the reference the port is tested against.
 
-Layer map of the slice ported so far (one folio through ``process()``):
+Layer map of the slices ported so far (one folio through ``process()``, NW
+alignment and the scoring grid search):
 
 - ``pipeline.process`` — ``process()`` and ``to_JSON_dict``. The raster,
-  line segmentation, NW alignment (on the host) and assembly are the JAX
-  package's framework-free host code, reached through ``_reuse``.
+  line segmentation and assembly are the JAX package's framework-free host
+  code, reached through ``_reuse``.
+- ``evaluate`` — ``grid_search`` over the scoring grid.
+- ``align.api`` — ``perform_alignment`` and ``align_grid``: NW on the host
+  fill or on a device. ``align.nw_torch`` — one pair, batches of pairs
+  (``align_pairs``) and the grid on a device. ``align.nw_kernel`` — the
+  wavefront fill, the batched fill and the pointer walk, each a
+  hand-written CUDA kernel beside its plain PyTorch version.
 - ``models.recognizer`` — ``SeqRecognizer``: bit-packed strips -> line
   normalizer -> BiLSTM -> CTC region decode -> uint16 wire, on one device.
 - ``models.lineest`` / ``models.lineest_kernel`` — the batched line

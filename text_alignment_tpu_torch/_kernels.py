@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at the first CUDA use, and loaded
-with ``ctypes``. The library lands in ``build/torch_kernels/`` beside the
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source started together, and linked into one shared library
+with a plain C interface, at the first CUDA use, and loaded with
+``ctypes``. The library lands in ``build/torch_kernels/`` beside the
 package, keyed by a hash of the sources and flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as it is. Nothing is built when a
 module is imported: the CPU tests import every module and there is no
@@ -29,14 +30,16 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("lstm_scan.cu", "lineest_tail.cu")
+SOURCES = ("lstm_scan.cu", "lineest_tail.cu", "nw_fill.cu",
+           "nw_traceback.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 
-launches = {"lstm_scan": 0, "lineest_tail": 0}
+launches = {"lstm_scan": 0, "lineest_tail": 0, "nw_fill": 0,
+            "nw_fill_batched": 0, "nw_traceback": 0}
 build_seconds: float | None = None  # wall time of the last nvcc build
 
 _lib = None
@@ -72,17 +75,39 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libta_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once, wait for all, raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(so_path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_source_paths()]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in _source_paths()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                  for src, obj in zip(_source_paths(), objs)])
+        tmp = f"{so_path}.{tag}"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so_path)
     build_seconds = time.perf_counter() - t0
 
@@ -105,6 +130,14 @@ def lib():
         L.ta_lineest_tail.restype = i
         L.ta_lineest_tail.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p,
                                       p, i, p]
+        L.ta_nw_fill_smem.restype = ctypes.c_size_t
+        L.ta_nw_fill_smem.argtypes = [i, i]
+        L.ta_nw_fill.restype = i
+        L.ta_nw_fill.argtypes = [p, p, p, p, i, i, i, i, p]
+        L.ta_nw_fill_batched.restype = i
+        L.ta_nw_fill_batched.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        L.ta_nw_traceback_batched.restype = i
+        L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
         _lib = L
         return L
 

@@ -1,8 +1,9 @@
 """The one doorway from the port to the JAX package's framework-free host code.
 
 The host stages of the slice (the native C++ raster, line segmentation,
-syllabification, NW on the host, assembly, ``.pyrnn`` I/O, the scipy line
-normalizer and the synthetic page generator) never touch JAX, but their
+syllabification, the NW scoring forms, host fill and traceback, assembly,
+``.pyrnn`` I/O, the scipy line normalizer, the evaluation metrics and the
+synthetic page generator) never touch JAX, but their
 packages' ``__init__`` files do: ``ops/__init__.py`` imports ``ops.device``,
 ``models/__init__.py`` imports ``lstm_jax`` and ``pipeline/__init__.py``
 imports ``process``. Importing ``text_alignment_tpu.pipeline.preprocess``
@@ -87,7 +88,7 @@ rotate_bboxes = _assemble.rotate_bboxes
 
 syllabify_text = _mod("lang.syllabify").syllabify_text
 filename_to_text_func = _mod("lang").filename_to_text_func
-perform_alignment = _mod("align.api").perform_alignment
+auto_device_min_cells = _mod("align.api").auto_device_min_cells
 stage_timer = _mod("utils.timing").stage_timer
 load_charboxes = _mod("utils.ref_pickle").load_charboxes
 
@@ -98,7 +99,26 @@ lineest = _lineest
 DEFAULT_PAD = _lineest.DEFAULT_PAD
 DEFAULT_TARGET_HEIGHT = _lineest.DEFAULT_TARGET_HEIGHT
 
-make_page = _mod("synth").make_page
+_scoring = _mod("align.scoring")
+resolve_scoring = _scoring.resolve_scoring
+Scoring = _scoring.Scoring
+BOUNDARY_GAP_EXTEND = _scoring.BOUNDARY_GAP_EXTEND
+fill_host = _mod("align.nw_host").fill_host
+_traceback = _mod("align.traceback")
+traceback = _traceback.traceback
+DensePtrView = _traceback.DensePtrView
+DiagPtrView = _traceback.DiagPtrView
+
+_evaluate = _mod("evaluate")
+scoring_grid = _evaluate.scoring_grid
+DEFAULT_GRID = _evaluate.DEFAULT_GRID
+evaluate_alignment = _evaluate.evaluate_alignment
+parse_gt_xml = _evaluate.parse_gt_xml
+
+_synth = _mod("synth")
+make_page = _synth.make_page
+corrupt_ocr = _synth.corrupt_ocr
+ocr_with_spaces = _synth.ocr_with_spaces
 
 
 def draw_results_on_page(*args, **kwargs):

@@ -1,0 +1,94 @@
+"""Public alignment API of the port: ``perform_alignment`` and
+``align_grid``.
+
+Counterpart of ``text_alignment_tpu/align/api.py``, with ``device``: the
+reference's contract (element lists, a ``' '`` sentinel appended to both,
+the Gotoh fill, equal-length aligned lists with ``'_'`` gaps).
+
+Backends:
+- ``"host"``: the JAX package's host fill (native C++ for the parity
+  boundary form, numpy otherwise) and traceback.
+- ``"device"``: fill and traceback on ``device``: the CUDA kernels for
+  integer match/mismatch scoring, the plain torch wavefront for callable or
+  non-integer scoring (:func:`_device_align_ops`). On a CPU device both
+  run their plain PyTorch versions.
+- ``"auto"``: the device when it is a CUDA card and the pair has at least
+  ``auto_device_min_cells()`` cells (``len(t) * len(o)``, sentinels
+  included), the host otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._reuse import (
+    DensePtrView,
+    auto_device_min_cells,
+    fill_host,
+    resolve_scoring,
+    traceback,
+)
+from . import nw_torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card when there is one."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+def _device_align_ops(sc):
+    """The device fill + traceback for this scoring form: the fill kernel
+    for integer match/mismatch, the plain torch wavefront otherwise."""
+    if nw_torch.kernel_form(sc):
+        return nw_torch.align_ops
+    return nw_torch.align_ops_plain
+
+
+def align_grid(transcript, ocr, params_list, device=None):
+    """One (transcript, ocr) pair aligned under many integer scoring rows
+    [match, mismatch, gox, goy, gex, gey] on ``device`` (the card when
+    there is one): the 729-combination grid search as batched wavefronts
+    (:func:`.nw_torch.align_grid`). Returns (tra_align, ocr_align) per
+    row."""
+    return nw_torch.align_grid(transcript, ocr, params_list,
+                               resolve_device(device))
+
+
+def perform_alignment(transcript, ocr, scoring_system=None, verbose=False,
+                      backend="auto", strict=True, device=None):
+    """Globally align ``transcript`` against ``ocr``.
+
+    Both arguments are lists of hashable elements (typically 1-char
+    strings). Returns ``(tra_align, ocr_align)`` lists of equal length.
+    ``strict=False`` replaces the reference's stale boundary gap extend
+    with the scoring system's own extends. ``device``: the torch device of
+    the ``"device"`` backend (None: the card when there is one).
+    """
+    transcript = list(transcript) + [" "]
+    ocr = list(ocr) + [" "]
+    sc = resolve_scoring(scoring_system, strict=strict)
+
+    if backend == "auto":
+        device = resolve_device(device)
+        big = len(transcript) * len(ocr) >= auto_device_min_cells()
+        backend = "device" if big and device.type == "cuda" else "host"
+
+    if backend == "host":
+        ptrs = DensePtrView(*fill_host(transcript, ocr, sc))
+        tra_align, ocr_align = traceback(transcript, ocr, ptrs)
+    elif backend == "device":
+        ops, count, xpt, ypt = _device_align_ops(sc)(
+            transcript, ocr, sc, resolve_device(device))
+        tra_align, ocr_align = nw_torch.replay_ops(transcript, ocr, ops,
+                                                   count, xpt, ypt)
+    else:
+        raise ValueError("unknown backend {!r}".format(backend))
+
+    if verbose:
+        for n in range(len(tra_align)):
+            marker = "O" if tra_align[n] == ocr_align[n] else "~"
+            print("{} {} {}".format(tra_align[n], ocr_align[n], marker))
+
+    return tra_align, ocr_align

@@ -1,0 +1,266 @@
+"""The NW fill and traceback: the CUDA kernels ``csrc/nw_fill.cu`` and
+``csrc/nw_traceback.cu`` and their plain PyTorch versions.
+
+Counterparts of ``text_alignment_tpu/align/nw_pallas.py``: :func:`fill`
+(``_fill_pallas``, one pair), :func:`fill_batched`
+(``_fill_pallas_batched``) and :func:`traceback_batched`
+(``traceback_ops_pallas_batched``). Each dispatcher launches the kernel on
+CUDA tensors and runs the plain version on CPU tensors; a shape or type the
+kernel does not take raises.
+
+Layouts: ``t`` (B, L) ids, ``t[b, i]`` the id of transcript element i - 1
+(lane 0 unused); ``o`` (1 or B, NoP) ids, ``o[b, j]`` the id of OCR element
+j - 1 (one row is shared by every pair); ``params`` (1 or B, 8)
+``[match, mismatch, gox, goy, gex, gey, bge_row0, bge_col0]`` (one row is
+shared). The fill returns packed pointers (B, D = L + NoP - 1, L) uint8,
+``packed[b, i + j, i] = mp | xp << 2 | yp << 4``. The traceback returns the
+wire (B, 3 + L + NoP) int32 ``[k, xpt, ypt, ops...]``, of which ``ops[:k]``
+are defined.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from .._kernels import SMEM_LIMIT
+
+INT_NEG = -(2**30)
+FLOAT_NEG = -1e30
+MAX_THREADS = 1024  # TA_NW_MAX_THREADS in csrc/nw_fill.cu
+_RUNS = (1, 2, 4, 8, 16, 32)  # lanes per thread the fill kernel is built for
+
+
+def _first_max3(a, b, c):
+    """(max, argmax) of three tensors, the first maximum winning ties."""
+    v01 = torch.maximum(a, b)
+    p01 = torch.where(a >= b, 0, 1)
+    return torch.maximum(v01, c), torch.where(v01 >= c, p01, 2)
+
+
+def fill_reference(t, o, params, S=None):
+    """Plain anti-diagonal wavefront, the recurrence of
+    ``nw_jax._fill_scan``: one Python step per diagonal, the pairs and the
+    lanes vectorized. ``params`` int32 runs in int32 (NEG = -2^30), float32
+    in float32 (NEG = -1e30). ``S`` (A, A) of ``params``' dtype, when given,
+    scores ``S[t_id, o_id]`` (the substitution-matrix form) instead of
+    match/mismatch."""
+    B, L = t.shape
+    NoP = o.shape[1]
+    D = L + NoP - 1
+    dt = params.dtype
+    dev = t.device
+    neg = torch.tensor(INT_NEG if dt == torch.int32 else FLOAT_NEG, dtype=dt,
+                       device=dev)
+    p = params.to(dev)[:, :, None]  # (1 or B, 8, 1): a column per pair
+    match, mismatch = p[:, 0], p[:, 1]
+    gox_gex, goy_gey = p[:, 2] + p[:, 4], p[:, 3] + p[:, 5]
+    gex, gey = p[:, 4], p[:, 5]
+    bge_r0, bge_c0 = p[:, 6], p[:, 7]
+    lane = torch.arange(L, device=dev)
+    lane_f = lane.to(dt)
+    t = t.long()
+    o = o.long()
+
+    def shift(v):
+        return torch.cat([neg.expand(B, 1), v[:, :-1]], dim=1)
+
+    m2 = x2 = y2 = m1 = x1 = y1 = neg.expand(B, L)
+    out = torch.empty((B, D, L), dtype=torch.uint8, device=dev)
+    for d in range(D):
+        j = d - lane
+        oj = o[:, j.clamp(0, NoP - 1)]
+        if S is None:
+            s = torch.where(t == oj, match, mismatch)
+        else:
+            s = S[t, oj]
+        m_int, mp = _first_max3(shift(m2), shift(x2), shift(y2))
+        m_int = m_int + s
+        y_int, yp = _first_max3(m1 + goy_gey, x1 + goy_gey, y1 + gey)
+        m1s, x1s, y1s = shift(m1), shift(x1), shift(y1)
+        x_int, xp = _first_max3(m1s + gox_gex, x1s + gex, y1s + gox_gex)
+
+        row0 = lane == 0
+        col0 = (j == 0) & (lane > 0)
+        invalid = (j < 0) | (j >= NoP)
+        jd = j.to(dt)
+        m_v = torch.where(row0, bge_r0 * jd,
+                          torch.where(col0, bge_c0 * lane_f, m_int))
+        x_v = torch.where(row0, bge_r0 * jd, torch.where(col0, neg, x_int))
+        y_v = torch.where(row0, neg, torch.where(col0, bge_c0 * lane_f,
+                                                 y_int))
+        m_v = torch.where(invalid, neg, m_v).expand(B, L)
+        x_v = torch.where(invalid, neg, x_v).expand(B, L)
+        y_v = torch.where(invalid, neg, y_v).expand(B, L)
+        out[:, d] = (mp | (xp << 2) | (yp << 4)).to(torch.uint8)
+        m2, x2, y2, m1, x1, y1 = m1, x1, y1, m_v, x_v, y_v
+    return out
+
+
+def lanes_per_thread(L: int) -> int:
+    """Contiguous lanes each thread of the fill kernel owns: the fewest
+    that keep the block within 1024 threads."""
+    for run in _RUNS:
+        if L % run == 0 and L // run <= MAX_THREADS:
+            return run
+    raise ValueError(f"nw_fill: L={L} needs more than {MAX_THREADS} threads "
+                     f"of at most {_RUNS[-1]} lanes")
+
+
+def fill_smem_bytes(L: int) -> int:
+    threads = L // lanes_per_thread(L)
+    return 9 * L + 2 * (-(-threads // 32)) * 24  # csrc/nw_fill.cu layout
+
+
+def _check(name, tensor, dtype, shape, device):
+    if (tensor.device != device or tensor.dtype != dtype
+            or tuple(tensor.shape) != shape or not tensor.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {dtype} tensor of shape {shape} on "
+            f"{device}, got {tensor.dtype} {tuple(tensor.shape)} on "
+            f"{tensor.device}")
+
+
+def _check_fill(what, t, o, params):
+    if t.dim() != 2 or o.dim() != 2 or params.dim() != 2:
+        raise ValueError(f"{what}: t, o and params must be 2-D")
+    B, L = t.shape
+    NoP = o.shape[1]
+    _check(f"{what}: t", t, torch.int32, (B, L), t.device)
+    _check(f"{what}: o", o, torch.int32, (o.shape[0], NoP), t.device)
+    _check(f"{what}: params", params, torch.int32, (params.shape[0], 8),
+           t.device)
+    if B == 0 or L == 0 or NoP == 0:
+        raise ValueError(f"{what}: empty input t {tuple(t.shape)} o "
+                         f"{tuple(o.shape)}")
+    if o.shape[0] not in (1, B) or params.shape[0] not in (1, B):
+        raise ValueError(f"{what}: o and params need 1 or {B} rows, got "
+                         f"{o.shape[0]} and {params.shape[0]}")
+    run = lanes_per_thread(L)
+    if fill_smem_bytes(L) > SMEM_LIMIT:
+        raise ValueError(f"{what}: L={L} needs {fill_smem_bytes(L)} bytes of "
+                         f"shared memory, over the {SMEM_LIMIT} a block has")
+    return B, L, NoP, run
+
+
+def fill_cuda(t, o, params):
+    """Launch ``ta_nw_fill`` (one pair, B = 1) on PyTorch's current
+    stream."""
+    B, L, NoP, run = _check_fill("nw_fill", t, o, params)
+    if B != 1 or o.shape[0] != 1 or params.shape[0] != 1:
+        raise ValueError("nw_fill takes one pair; use fill_batched for more")
+    out = torch.empty((1, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
+    code = _kernels.lib().ta_nw_fill(
+        t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), L, NoP,
+        run, t.device.index, _kernels.stream_handle(t.device))
+    _kernels.check(code, "nw_fill launch")
+    _kernels.launches["nw_fill"] += 1
+    return out
+
+
+def fill_batched_cuda(t, o, params):
+    """Launch ``ta_nw_fill_batched``: one OCR row shared by every pair
+    (``shared_feed``) when ``o`` has one row, one scoring row per pair
+    (``per_pair``) when ``params`` has B rows."""
+    B, L, NoP, run = _check_fill("nw_fill_batched", t, o, params)
+    out = torch.empty((B, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
+    code = _kernels.lib().ta_nw_fill_batched(
+        t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), B, L,
+        NoP, run, int(params.shape[0] == B and B > 1),
+        int(o.shape[0] == 1), t.device.index,
+        _kernels.stream_handle(t.device))
+    _kernels.check(code, "nw_fill_batched launch")
+    _kernels.launches["nw_fill_batched"] += 1
+    return out
+
+
+def _device_type(what, tensor) -> str:
+    kind = tensor.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: no version for device {tensor.device}")
+    return kind
+
+
+def fill(t, o, params):
+    """Packed pointers of one pair: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if _device_type("nw_fill", t) == "cuda":
+        return fill_cuda(t, o, params)
+    return fill_reference(t, o, params)
+
+
+def fill_batched(t, o, params):
+    """Packed pointers of B pairs of one bucket: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if _device_type("nw_fill_batched", t) == "cuda":
+        return fill_batched_cuda(t, o, params)
+    return fill_reference(t, o, params)
+
+
+def traceback_reference(packed, nts, nos):
+    """Plain pointer walk, ``nw_jax._traceback_ops`` in lock step over the
+    pairs: one Python step per path step, the pairs vectorized."""
+    B, D, L = packed.shape
+    P = D + 1
+    flat = packed.reshape(B, D * L)
+    xpt = nts.long() - 1
+    ypt = nos.long() - 1
+
+    def cell():
+        return flat.gather(1, ((xpt + ypt) * L + xpt)[:, None])[:, 0].long()
+
+    mpt = cell() & 3
+    k = torch.zeros_like(xpt)
+    ops = torch.zeros((B, P), dtype=torch.int32, device=packed.device)
+    steps = int((xpt + ypt).max().item()) if B else 0
+    for step in range(steps):
+        if step % 256 == 0 and not bool(((xpt > 0) & (ypt > 0)).any()):
+            break
+        active = (xpt > 0) & (ypt > 0)
+        kk = k[:, None]
+        ops.scatter_(1, kk, torch.where(active[:, None], mpt[:, None].int(),
+                                        ops.gather(1, kk)))
+        nxt = (cell() >> (2 * mpt)) & 3
+        xpt = xpt - ((mpt != 2) & active).long()
+        ypt = ypt - ((mpt != 1) & active).long()
+        mpt = torch.where(active, nxt, mpt)
+        k = k + active.long()
+    head = torch.stack([k, xpt, ypt], dim=1).int()
+    return torch.cat([head, ops], dim=1)
+
+
+def _check_traceback(packed, nts, nos):
+    if packed.dim() != 3:
+        raise ValueError("nw_traceback: packed must be (B, D, L)")
+    B, D, L = packed.shape
+    _check("nw_traceback: packed", packed, torch.uint8, (B, D, L),
+           packed.device)
+    _check("nw_traceback: nts", nts, torch.int32, (B,), packed.device)
+    _check("nw_traceback: nos", nos, torch.int32, (B,), packed.device)
+    if B == 0 or D < L:
+        raise ValueError(f"nw_traceback: bad shape {tuple(packed.shape)}")
+    NoP = D - L + 1
+    if bool(((nts < 1) | (nts > L) | (nos < 1) | (nos > NoP)).any()):
+        raise ValueError(f"nw_traceback: sizes outside 1..{L} x 1..{NoP}")
+    return B, D, L
+
+
+def traceback_cuda(packed, nts, nos):
+    """Launch ``ta_nw_traceback_batched`` on PyTorch's current stream."""
+    B, D, L = _check_traceback(packed, nts, nos)
+    wire = torch.empty((B, 3 + D + 1), dtype=torch.int32, device=packed.device)
+    code = _kernels.lib().ta_nw_traceback_batched(
+        packed.data_ptr(), nts.data_ptr(), nos.data_ptr(), wire.data_ptr(), B,
+        D, L, packed.device.index, _kernels.stream_handle(packed.device))
+    _kernels.check(code, "nw_traceback launch")
+    _kernels.launches["nw_traceback"] += 1
+    return wire
+
+
+def traceback_batched(packed, nts, nos):
+    """The (B, 3 + P) wire ``[k, xpt, ypt, ops...]``: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if _device_type("nw_traceback", packed) == "cuda":
+        return traceback_cuda(packed, nts, nos)
+    _check_traceback(packed, nts, nos)
+    return traceback_reference(packed, nts, nos)

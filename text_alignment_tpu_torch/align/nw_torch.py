@@ -1,0 +1,284 @@
+"""NW alignment on a torch device: one pair, a batch of pairs, and one pair
+under many scoring systems.
+
+Counterpart of ``text_alignment_tpu/align/nw_jax.py`` and the host side of
+``nw_pallas.py``. Integer match/mismatch scoring (either boundary form)
+runs on the kernels of :mod:`.nw_kernel`; callable or non-integer scoring
+runs the plain wavefront :func:`.nw_kernel.fill_reference` on the same
+device, where the JAX package also leaves its Pallas kernel for the XLA
+scan. The route depends on the scoring form alone. Every path ends in the
+pointer walk of :func:`.nw_kernel.traceback_batched`, one copy of the
+(ops, k, xpt, ypt) wire to the host, and :func:`replay_ops`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._reuse import BOUNDARY_GAP_EXTEND, DensePtrView, fill_host, traceback
+from . import nw_kernel
+
+# Packed pointers one batched fill may hold on the card at once (4 GiB of
+# its 80 GB): the 2400^2 grid (D * L = 5119 * 2560 B per combination) runs
+# 327 combinations per launch, a chant-size grid all 729 in one.
+PTR_BUDGET = 4 << 30
+
+
+def _bucket(n: int) -> int:
+    """Padding ladder of ``nw_jax._bucket``: powers of two from 128 up to
+    2048, then multiples of 512 (every rung a multiple of 128)."""
+    b = 128
+    while b < n and b < 2048:
+        b *= 2
+    if n <= b:
+        return b
+    return -(-n // 512) * 512
+
+
+def _token_ids(transcript, ocr):
+    """int32 ids of two token sequences (``nw_pallas._token_ids``). Only id
+    equality feeds the kernels, so any injective map is exact; all
+    one-character strings use their code points."""
+    if all(type(c) is str and len(c) == 1 for c in transcript) and all(
+            type(c) is str and len(c) == 1 for c in ocr):
+        return (
+            np.frombuffer("".join(transcript).encode("utf-32-le"),
+                          np.uint32).astype(np.int32),
+            np.frombuffer("".join(ocr).encode("utf-32-le"),
+                          np.uint32).astype(np.int32),
+        )
+    vocab = sorted(set(transcript) | set(ocr))
+    ids = {v: k for k, v in enumerate(vocab)}
+    return (np.array([ids[c] for c in transcript], np.int32),
+            np.array([ids[c] for c in ocr], np.int32))
+
+
+def _encode(transcript, ocr, sc):
+    """Vocabulary ids and the scoring of the plain route
+    (``nw_jax._encode``): (t_ids, o_ids, params row, S or None). int32
+    when every score is an integer, float32 otherwise; S is the
+    substitution matrix of a callable scoring."""
+    vocab = sorted(set(transcript) | set(ocr))
+    ids = {v: k for k, v in enumerate(vocab)}
+    is_int = sc.is_integral
+    S = None
+    if sc.match_mismatch is not None:
+        match, mismatch = sc.match_mismatch
+    else:
+        S = np.array([[sc.score(a, b) for b in vocab] for a in vocab],
+                     np.float64)
+        is_int = is_int and bool(np.all(S == np.round(S)))
+        match = mismatch = 0
+    dt = np.int32 if is_int else np.float32
+    row = np.array([match, mismatch, sc.gap_open_x, sc.gap_open_y,
+                    sc.gap_extend_x, sc.gap_extend_y, sc.bge_row0,
+                    sc.bge_col0], np.float64)
+    if S is not None:
+        S = S.astype(dt)
+    return (np.array([ids[c] for c in transcript], np.int32),
+            np.array([ids[c] for c in ocr], np.int32), row.astype(dt), S)
+
+
+def kernel_form(sc) -> bool:
+    """True when the kernels take this scoring: integer match/mismatch."""
+    return sc.match_mismatch is not None and sc.is_integral
+
+
+def kernel_params(sc) -> np.ndarray:
+    """The kernels' scoring row [match, mismatch, gox, goy, gex, gey,
+    bge_row0, bge_col0], int32."""
+    match, mismatch = sc.match_mismatch
+    return np.array([match, mismatch, sc.gap_open_x, sc.gap_open_y,
+                     sc.gap_extend_x, sc.gap_extend_y, sc.bge_row0,
+                     sc.bge_col0], np.int64).astype(np.int32)
+
+
+def _ext(ids, n_pad):
+    """Lane layout of the kernels: ``ext[k]`` is the id of element k - 1."""
+    ext = np.zeros(n_pad, np.int32)
+    ext[1:len(ids)] = ids[:len(ids) - 1]
+    return ext
+
+
+def lane_batch(pairs):
+    """Pairs (sentinels included) in the kernels' lane layout, padded to
+    the bucket of the longest: t (B, L) and o (B, NoP) int32 ids, and the
+    sizes Nt, No (B,) int32."""
+    ids = [_token_ids(t, o) for t, o in pairs]
+    L = _bucket(max(len(a) for a, _ in ids))
+    NoP = _bucket(max(len(b) for _, b in ids))
+    return (np.stack([_ext(a, L) for a, _ in ids]),
+            np.stack([_ext(b, NoP) for _, b in ids]),
+            np.array([len(a) for a, _ in ids], np.int32),
+            np.array([len(b) for _, b in ids], np.int32))
+
+
+def replay_ops(transcript, ocr, ops, count, xpt_tail, ypt_tail):
+    """Host replay of the device op sequence into aligned element lists,
+    byte-identical to the reference traceback (``nw_jax.replay_ops``):
+    the forced sentinel pair, the leftover gap runs and the [-1:0:-1]
+    reversal. Vectorized: the cursor before each step is an exclusive
+    prefix sum of the op stream's decrements."""
+    xpt = len(transcript) - 1
+    ypt = len(ocr) - 1
+    if count > 0:
+        o = np.asarray(ops[:count], np.int64)
+        dx = o != 2  # op 0 (diag) and 1 (x-gap) consume a transcript char
+        dy = o != 1  # op 0 (diag) and 2 (y-gap) consume an OCR char
+        cx = np.cumsum(dx)
+        cy = np.cumsum(dy)
+        xpt_i = xpt - cx + dx
+        ypt_i = ypt - cy + dy
+        t_arr = np.array(transcript, dtype=object)
+        o_arr = np.array(ocr, dtype=object)
+        gap = np.array(["_"], dtype=object)[0]
+        tra_mid = np.where(dx, t_arr[xpt_i - 1], gap)
+        ocr_mid = np.where(dy, o_arr[ypt_i - 1], gap)
+        tra_align = [transcript[xpt]] + list(tra_mid)
+        ocr_align = [ocr[ypt]] + list(ocr_mid)
+        xpt -= int(cx[-1])
+        ypt -= int(cy[-1])
+    else:
+        tra_align = [transcript[xpt]]
+        ocr_align = [ocr[ypt]]
+    if (xpt, ypt) != (xpt_tail, ypt_tail):
+        raise RuntimeError(
+            f"NW op stream ends at ({xpt}, {ypt}), the walk at "
+            f"({xpt_tail}, {ypt_tail})")
+
+    if ypt > 0:
+        tra_align.extend(["_"] * ypt)
+        ocr_align.extend(ocr[ypt - 1::-1])
+    if xpt > 0:
+        ocr_align.extend(["_"] * xpt)
+        tra_align.extend(transcript[xpt - 1::-1])
+    return tra_align[-1:0:-1], ocr_align[-1:0:-1]
+
+
+def unwire(wire):
+    """(ops, k, xpt, ypt) of a host copy of the traceback wire."""
+    return wire[..., 3:], wire[..., 0], wire[..., 1], wire[..., 2]
+
+
+def _walk(packed, nts, nos, device):
+    """Traceback of B filled pairs and one copy of the wire to the host."""
+    nts = torch.as_tensor(np.asarray(nts, np.int32)).to(device)
+    nos = torch.as_tensor(np.asarray(nos, np.int32)).to(device)
+    return unwire(nw_kernel.traceback_batched(packed, nts, nos).cpu().numpy())
+
+
+def align_ops(transcript, ocr, sc, device):
+    """One pair (sentinels included) through the fill kernel and the
+    traceback kernel: (ops, k, xpt, ypt) on the host. Integer
+    match/mismatch scoring only."""
+    t, o, nts, nos = lane_batch([(transcript, ocr)])
+    params = torch.from_numpy(kernel_params(sc)[None]).to(device)
+    packed = nw_kernel.fill(torch.from_numpy(t).to(device),
+                            torch.from_numpy(o).to(device), params)
+    ops, k, xpt, ypt = _walk(packed, nts, nos, device)
+    return ops[0], int(k[0]), int(xpt[0]), int(ypt[0])
+
+
+def align_ops_plain(transcript, ocr, sc, device):
+    """One pair through the plain torch wavefront on ``device`` (callable
+    or non-integer scoring), then the traceback kernel."""
+    t_ids, o_ids, row, S = _encode(transcript, ocr, sc)
+    L, NoP = _bucket(len(t_ids)), _bucket(len(o_ids))
+    t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
+    o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
+    params = torch.from_numpy(row[None]).to(device)
+    S = None if S is None else torch.from_numpy(S).to(device)
+    packed = nw_kernel.fill_reference(t, o, params, S)
+    ops, k, xpt, ypt = _walk(packed, [len(t_ids)], [len(o_ids)], device)
+    return ops[0], int(k[0]), int(xpt[0]), int(ypt[0])
+
+
+def _per_launch(L: int, NoP: int) -> int:
+    return max(1, PTR_BUDGET // ((L + NoP - 1) * L))
+
+
+def align_pairs(pairs, sc, min_device_cells: int | None = None,
+                device=None):
+    """Many (transcript, ocr) pairs under one integer match/mismatch
+    scoring (``nw_jax.align_pairs_jax`` without a mesh). Pairs of fewer
+    than ``min_device_cells`` cells (default: the host/device crossover,
+    ``align.api.auto_device_min_cells``) run the host fill; the rest are
+    grouped by padded (L, NoP) bucket and each group runs as one batched
+    fill (its scoring row shared) and one traceback launch. Returns
+    (tra_align, ocr_align) per pair in input order, or None per pair when
+    the scoring is not integer match/mismatch (the caller aligns those one
+    by one). Sentinels are appended here."""
+    if not kernel_form(sc):
+        return [None for _ in pairs]
+    from .._reuse import auto_device_min_cells
+
+    device = torch.device(device if device is not None else "cpu")
+    min_cells = (auto_device_min_cells() if min_device_cells is None
+                 else min_device_cells)
+    results = [None] * len(pairs)
+    groups: dict[tuple[int, int], list[int]] = {}
+    prepared = []
+    for idx, (t, o) in enumerate(pairs):
+        t, o = list(t) + [" "], list(o) + [" "]
+        prepared.append((t, o))
+        if len(t) * len(o) < min_cells:
+            results[idx] = traceback(t, o, DensePtrView(*fill_host(t, o, sc)))
+        else:
+            groups.setdefault((_bucket(len(t)), _bucket(len(o))),
+                              []).append(idx)
+
+    params = torch.from_numpy(kernel_params(sc)[None]).to(device)
+    for (L, NoP), members in sorted(groups.items()):
+        step = _per_launch(L, NoP)
+        for c0 in range(0, len(members), step):
+            chunk = members[c0:c0 + step]
+            t, o, nts, nos = lane_batch([prepared[i] for i in chunk])
+            packed = nw_kernel.fill_batched(torch.from_numpy(t).to(device),
+                                            torch.from_numpy(o).to(device),
+                                            params)
+            ops, k, xpt, ypt = _walk(packed, nts, nos, device)
+            del packed
+            for bi, i in enumerate(chunk):
+                results[i] = replay_ops(*prepared[i], ops[bi], int(k[bi]),
+                                        int(xpt[bi]), int(ypt[bi]))
+    return results
+
+
+def align_grid(transcript, ocr, params_list, device=None):
+    """One (transcript, ocr) pair under many integer scoring rows
+    [match, mismatch, gox, goy, gex, gey], the reference's boundary gap
+    extend on both axes (``nw_jax.align_grid_jax`` without a mesh): the
+    729-combination grid search. Every combination of a launch reads the
+    one OCR row (``shared_feed``) and its own scoring row (``per_pair``);
+    the combination axis is cut into launches whose packed pointers stay
+    within ``PTR_BUDGET``. Returns (tra_align, ocr_align) per row.
+    Sentinels are appended here."""
+    device = torch.device(device if device is not None else "cpu")
+    transcript = list(transcript) + [" "]
+    ocr = list(ocr) + [" "]
+    t_ids, o_ids = _token_ids(transcript, ocr)
+    Nt, No = len(t_ids), len(o_ids)
+    L, NoP = _bucket(Nt), _bucket(No)
+    p6 = np.asarray(params_list, np.int64)
+    if p6.ndim != 2 or p6.shape[1] != 6:
+        raise ValueError(f"params_list must be rows of 6 integers, got shape "
+                         f"{p6.shape}")
+    rows = np.concatenate(
+        [p6, np.full((len(p6), 2), BOUNDARY_GAP_EXTEND, np.int64)],
+        axis=1).astype(np.int32)
+    step = min(len(rows), _per_launch(L, NoP))
+    t = torch.from_numpy(_ext(t_ids, L)).to(device)[None].expand(step, L)
+    t = t.contiguous()
+    o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
+    results = []
+    for c0 in range(0, len(rows), step):
+        pr = torch.from_numpy(rows[c0:c0 + step]).to(device)
+        n = pr.shape[0]
+        packed = nw_kernel.fill_batched(t[:n], o, pr)
+        ops, k, xpt, ypt = _walk(packed, [Nt] * n, [No] * n, device)
+        del packed
+        for b in range(n):
+            results.append(replay_ops(transcript, ocr, ops[b], int(k[b]),
+                                      int(xpt[b]), int(ypt[b])))
+    return results

@@ -13,9 +13,12 @@ Stages:
   through :mod:`.._reuse`;
 - OCR: the port's :class:`..models.recognizer.SeqRecognizer` on ``device``,
   normalizing lines on the device when that device is a CUDA card;
-- NW alignment: ``perform_alignment(..., backend="host")`` for every pair.
-  The device NW fill arrives with the NW kernels (ROADMAP queue B); on a
-  chant page the reference sends pairs to the host fill anyway;
+- NW alignment: the port's ``perform_alignment``. ``backend="hybrid"``
+  routes the pair as the JAX package's hybrid does ("auto"): to the CUDA
+  fill and traceback kernels on ``device`` when that device is a card and
+  the pair has at least ``auto_device_min_cells()`` cells, to the host fill
+  otherwise (a chant page, or any page on a CPU device); ``"host"`` always
+  takes the host fill;
 - assembly: the JAX package's host code.
 
 ``backend="device"`` (the device raster) is not ported yet and raises.
@@ -32,21 +35,14 @@ from .._reuse import (
     group_syllables,
     identify_text_lines,
     llocs_to_charboxes,
-    perform_alignment,
     preprocess_images,
     rotate_bboxes,
     syllabify_text,
 )
+from ..align.api import perform_alignment, resolve_device
 from ..models.lstm import pin_float32
 
 MEDIAN_LINE_MULT = 2  # threaded but unused, as in the reference
-
-
-def _resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the card when there is one."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
 
 
 def _resolve_recognizer(ocropus_model, backend, device):
@@ -75,9 +71,10 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
 
     raw_image: (H, W[, C]) uint8/bool numpy array. ``ocropus_model``: a
     ``.pyrnn(.gz)`` path (loaded onto ``device``) or a ready
-    ``SeqRecognizer``. ``device``: torch device of the OCR stage (None:
-    the card when there is one). ``backend``: "hybrid" (native C++ raster)
-    or "host" (numpy raster). ``strict=False`` fixes the documented
+    ``SeqRecognizer``. ``device``: torch device of the OCR stage and of the
+    device NW fill (None: the card when there is one). ``backend``:
+    "hybrid" (native C++ raster, NW routed "auto") or "host" (numpy
+    raster, host NW fill). ``strict=False`` fixes the documented
     reference defects (stage-1 CC area filter, NW boundary extends).
     ``median_line_mult``, ``wkdir_name`` and ``parallel`` are accepted and
     inert, as in the reference. ``stage_cache`` is not ported yet.
@@ -91,7 +88,7 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         raise NotImplementedError(
             "stage_cache is not ported yet (ROADMAP queue A, item 6)")
     pin_float32()
-    device = _resolve_device(device)
+    device = resolve_device(device)
     raw_image = np.asarray(raw_image)
     timer = timer or _reuse.stage_timer(enabled=False)
     if not strict:
@@ -164,7 +161,8 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         with timer("align"):
             tra_align, ocr_align = perform_alignment(
                 list(transcript), list(ocr), scoring_system=seq_align_params,
-                verbose=False, backend="host", strict=strict)
+                verbose=False, strict=strict, device=device,
+                backend="auto" if backend == "hybrid" else "host")
     tra_align = "".join(tra_align)
     ocr_align = "".join(ocr_align)
 
