@@ -32,12 +32,38 @@ Phases, each printing one line (any failure exits non-zero):
   10. NW inside process(): a 6000 x 4000 px page of 30 lines whose pair
      passes auto_device_min_cells(), OCR injected; process(backend="hybrid")
      on the card launches nw_fill and nw_traceback and its JSON equals the
-     same call on the CPU device (the host fill).
+     same call on the CPU device (the host fill);
+  11. the CC kernels against their plain versions on the card, on the
+     binarized 2000 x 1600 page of the first phase-13 folio (cc_filter:
+     three modes at four thresholds; cc_clean: the whole chain) and on its
+     rotated, eroded, separator-masked page (cc_table): packed pages
+     byte-identical, tables, counts and ok equal, and all equal to the
+     host oracle; kernel ms (CUDA events, median of 5) and plain ms; and
+     on the phase-5 folio, whose ~49k black runs overflow the 45,056-run
+     capacity, the same overflow flag and page as the plain version;
+  12. the skew search on the card against the host oracle's angle on the
+     folio and two rotated copies; ms per page;
+  13. process_batch on 8 full-size folios (2000 x 1600 px, 11 lines of
+     three words) with the phase-5 model on the card, (a) in the default
+     mode (host raster, skew search on the card) and (b) with
+     TEXT_ALIGNMENT_TPU_RASTER=device (the raster on the card through
+     cc_clean and cc_table): every folio's JSON byte-identical to
+     the sequential process() on the card; in (b) no host fallback and
+     cc_clean and cc_table launched >= 8 times each; one more page with a
+     lowered run capacity falls back and keeps its JSON; ms per folio of
+     (a), (b) and the sequential calls, with the stage split.
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for the OCR kernels, phase 10 for nw_fill and nw_traceback, the
-2400^2 grid for nw_fill_batched), error and times, and last the device
-JSON line. Weights and page are made from fixed seeds. Needs no
-network and no JAX.
+2400^2 grid for nw_fill_batched, phase 13 (b) for the CC kernels), error,
+times and bound, and last the device JSON line. Weights and pages are made
+from fixed seeds. Needs no network and no JAX.
+
+bound_ms is the larger of the bytes a kernel must move (each input read
+once, each output written once) over 3.35 TB/s and its operations over
+67 T/s, the H100 SXM's published HBM rate and float32 rate outside the
+tensor cores; the integer kernels' operations are counted against that
+rate too (the published table has no int32 row), which makes their bound
+a floor.
 """
 
 from __future__ import annotations
@@ -52,25 +78,45 @@ import time
 import numpy as np
 import torch
 
-from text_alignment_tpu_torch import _kernels, _reuse
+from text_alignment_tpu_torch import _kernels
 from text_alignment_tpu_torch.align import align_grid, perform_alignment
 from text_alignment_tpu_torch.align import nw_kernel as nwk
 from text_alignment_tpu_torch.align import nw_torch as nwt
+from text_alignment_tpu_torch.align.api import auto_device_min_cells
+from text_alignment_tpu_torch.align.scoring import resolve_scoring
+from text_alignment_tpu_torch.evaluate import scoring_grid
 from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
+from text_alignment_tpu_torch.models.codec import Codec
 from text_alignment_tpu_torch.models.lineest_kernel import (
     tail_cuda, tail_reference)
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan_cuda, bidir_scan_reference)
+from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
 from text_alignment_tpu_torch.models.recognizer import (
     SeqRecognizer, _unpack_bits)
+from text_alignment_tpu_torch.ops import cc, oracle
+from text_alignment_tpu_torch.ops import raster_device as rd
+from text_alignment_tpu_torch.ops import skew_device as sd
+from text_alignment_tpu_torch.parallel import process_batch
+from text_alignment_tpu_torch.pipeline import device_raster
 from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
+from text_alignment_tpu_torch.pipeline.preprocess import (
+    PreprocParams, _peaks_and_separators, identify_text_lines,
+    preprocess_images)
+from text_alignment_tpu_torch.pipeline.process import _resolve_recognizer
+from text_alignment_tpu_torch.synth import (
+    corrupt_ocr, make_page, ocr_with_spaces)
+from text_alignment_tpu_torch.utils.timing import stage_timer
 
 NI, NS = 48, 100
 LSTM_BAR = 1e-4
 OCR_KERNELS = ("lstm_scan", "lineest_tail")
 NW_ALPHABET = "abcdefgh "
 DEFAULT_ROW = [8, -4, -7, -7, -3, 0, -1, -1]  # the reference's default
+HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM, published
+ALU_OPS_PER_MS = 67e12 / 1e3      # float32 outside the tensor cores
+N_FOLIOS = 8
 
 
 class PhaseError(RuntimeError):
@@ -112,11 +158,44 @@ def peaky_params(seed: int, nout: int):
     return d
 
 
-def make_folio():
-    return _reuse.make_page(
-        np.random.default_rng(2024), n_lines=11, words_per_line=4,
-        H=2000, W=1600, char_h=66, char_w=36, gap=6, space_w=44,
-        line_spacing=170, speckles=200, margin_x=60)
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the ALU rate, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / ALU_OPS_PER_MS
+    return {"bound_ms": max(b, o),
+            "bound_by": "bytes" if b >= o else "operations"}
+
+
+def median_ms(fn, n: int = 5) -> float:
+    """Median milliseconds of ``n`` calls of ``fn`` on the card, each
+    between its own pair of CUDA events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def make_folio(seed: int = 2024, words_per_line: int = 4):
+    return make_page(
+        np.random.default_rng(seed), n_lines=11,
+        words_per_line=words_per_line, H=2000, W=1600, char_h=66, char_w=36,
+        gap=6, space_w=44, line_spacing=170, speckles=200, margin_x=60)
+
+
+def make_batch_folio(seed: int):
+    """A folio of the batch: the phase-5 folio's geometry with three words
+    a line, ~41k black and ~43k white runs, inside the CC kernels' 45,056
+    (a real text page has ~39k and ~41k); the four-word folio has ~49k
+    and ~51k, so its device raster always takes the host fallback."""
+    return make_folio(seed, words_per_line=3)
 
 
 def phase_card():
@@ -169,11 +248,22 @@ def phase_lstm(rec, fi):
     err = float((got - ref).abs().max().item())
     ms = cuda_ms(lambda: bidir_scan_cuda(gx, whT, peep), 20)
     plain_ms = cuda_ms(lambda: bidir_scan_reference(gx, whT, peep), 3)
-    _, T, B, _ = gx.shape
+    _, T, B, G = gx.shape
+    # the library yardstick: cuDNN's bidirectional LSTM on the same frames
+    # (it also computes the input projection, which gx already holds)
+    lstm = torch.nn.LSTM(NI, NS, bidirectional=True,
+                         batch_first=True).to(gx.device)
+    with torch.no_grad():
+        library_ms = median_ms(lambda: lstm(fi["frames"]))
+    steps = int(fi["lengths"].sum().item())  # per direction
+    nbytes = 4 * (gx.numel() + whT.numel() + peep.numel() + 2 * T * B * NS)
+    ops = 2 * steps * (8 * NS * NS + 16 * NS)
     print(f"lstm_scan: B={B} T={T} ns={NS} max_abs_err={err:.3e} "
-          f"(bar {LSTM_BAR}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+          f"(bar {LSTM_BAR}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"torch.nn.LSTM (cuDNN) {library_ms:.3f} ms")
     check(err <= LSTM_BAR, f"lstm_scan disagrees: {err} > {LSTM_BAR}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, ops), "library_ms": library_ms}
 
 
 def phase_tail(fi):
@@ -197,7 +287,11 @@ def phase_tail(fi):
     check(torch.equal(n1, n0), "lineest_tail: ink counts differ")
     check(err <= 1, f"lineest_tail: center off by {err} rows")
     check(same >= 0.99, f"lineest_tail: only {same:.4f} of columns agree")
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+    K2 = fi["k2"].shape[1]
+    nbytes = B * Hp * Wp * 5 + B * Wp * 4 + fi["k2"].numel() * 8 + 16 * B
+    ops = 4 * B * Hp * Wp + 2 * B * Wp * K2
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, ops), "library_ms": None}
 
 
 def run_process(page, path, timer=None):
@@ -217,7 +311,7 @@ def phase_slice(page, path, n_runs=5):
     timers, totals = [], []
     _kernels.reset_launches()
     for _ in range(n_runs):
-        timer = _reuse.stage_timer(enabled=True)
+        timer = stage_timer(enabled=True)
         t0 = time.perf_counter()
         out = run_process(page, path, timer)
         totals.append((time.perf_counter() - t0) * 1e3)
@@ -354,6 +448,9 @@ def phase_nw_fill(dev):
     print(f"nw_fill: 4096^2 pair, pointer bytes identical on valid cells "
           f"{same}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
     check(same, "nw_fill disagrees with its plain version at 4096^2")
+    L, NoP = tt.shape[1], oo.shape[1]
+    fill_bound = bound((L + NoP - 1) * L + 4 * (L + NoP) + 32,
+                       20 * int(nts[0]) * int(nos[0]))
     for n in (8191, 16383):
         a, b = seeded_pair(n, n, n)
         ta, ob, _, _ = nw_tensors([a], [b], dev)
@@ -378,7 +475,8 @@ def phase_nw_fill(dev):
         h_ms = min(wall_ms(lambda: perform_alignment(
             a, b, backend="host"))[1] for _ in range(3))
         print(f"nw crossover {n}^2: device {d_ms:.3f} ms host {h_ms:.3f} ms")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}, got, nts, nos
+    return ({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             **fill_bound, "library_ms": None}, got, nts, nos)
 
 
 def phase_nw_traceback(dev, packed, nts, nos):
@@ -401,7 +499,9 @@ def phase_nw_traceback(dev, packed, nts, nos):
           f"{same}; 6 mixed pairs of one bucket identical {same_b}; kernel "
           f"{ms:.3f} ms plain {plain_ms:.3f} ms")
     check(same and same_b, "nw_traceback disagrees with its plain version")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    k = int(w1[0, 0])  # the walk reads k cells and writes k ops
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            **bound(k + 4 * (3 + k), 6 * k), "library_ms": None}
 
 
 def host_align(t, o, row6):
@@ -419,17 +519,17 @@ def phase_nw_batched(dev, page):
              for k in range(6)]
     buckets = {(nwt._bucket(len(t) + 1), nwt._bucket(len(o) + 1))
                for t, o in pairs}
-    got = nwt.align_pairs(pairs, _reuse.resolve_scoring(None),
+    got = nwt.align_pairs(pairs, resolve_scoring(None),
                           min_device_cells=0, device=dev)
     same = got == [perform_alignment(t, o, backend="host") for t, o in pairs]
     print(f"nw align_pairs: 6 pairs in buckets {sorted(buckets)} equal to "
           f"the host {same}")
     check(same and len(buckets) == 1, "align_pairs differs from the host")
 
-    chant_ocr = _reuse.ocr_with_spaces(_reuse.corrupt_ocr(
+    chant_ocr = ocr_with_spaces(corrupt_ocr(
         np.random.default_rng(5), page.char_boxes))
     chant = (list(page.transcript), [c.char for c in chant_ocr])
-    grid = _reuse.scoring_grid()
+    grid = scoring_grid()
     sample = np.random.default_rng(9).choice(len(grid), 27, replace=False)
     launches = {}
     for name, (t, o) in (("chant", chant),
@@ -470,13 +570,18 @@ def phase_nw_batched(dev, page):
           f"NoP = {oo.shape[1]}), per_pair + shared_feed, identical {same}; "
           f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
     check(same, "nw_fill_batched disagrees with its plain version")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}, launches
+    L, NoP = tt.shape[1], oo.shape[1]
+    cells = 16 * int(nts[0]) * int(nos[0])
+    stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             **bound(16 * (L + NoP - 1) * L + 4 * (16 * L + NoP + 16 * 8),
+                     20 * cells), "library_ms": None}
+    return stats, launches
 
 
 def make_big_page():
     """A synthetic page whose transcript x OCR passes the auto threshold:
     30 lines of 12 words on 6000 x 4000 px."""
-    return _reuse.make_page(
+    return make_page(
         np.random.default_rng(77), n_lines=30, words_per_line=12, H=6000,
         W=4000, char_h=48, char_w=24, gap=4, space_w=30, line_spacing=190,
         speckles=300, margin_x=60)
@@ -487,15 +592,15 @@ def phase_nw_process():
     auto_device_min_cells(), OCR injected: on the card it must launch the
     fill and the traceback, and its JSON must equal the CPU device's."""
     page = make_big_page()
-    ocr = _reuse.ocr_with_spaces(_reuse.corrupt_ocr(
+    ocr = ocr_with_spaces(corrupt_ocr(
         np.random.default_rng(6), page.char_boxes))
     cells = (len(page.transcript) + 1) * (len(ocr) + 1)
-    check(cells >= _reuse.auto_device_min_cells(),
+    check(cells >= auto_device_min_cells(),
           f"page pair of {cells} cells is under the device threshold")
 
     process_json(page, ocr, "cuda")  # warm-up
     _kernels.reset_launches()
-    timer = _reuse.stage_timer(enabled=True)
+    timer = stage_timer(enabled=True)
     js_gpu, ms = wall_ms(lambda: process_json(page, ocr, "cuda", timer))
     launches = dict(_kernels.launches)
     js_cpu = process_json(page, ocr, "cpu")
@@ -519,28 +624,245 @@ def process_json(page, ocr, device, timer=None):
     return to_JSON_dict(out[0], out[2])
 
 
+def cc_ops(H: int, Wq: int, n_runs: int) -> int:
+    """Integer operations of one CC filter pass: two passes over the words
+    (count and decode, ~12 each) and ~40 per run (union, stats, paint)."""
+    return 24 * H * Wq + 40 * n_runs
+
+
+def phase_cc(dev, page, big_page):
+    """Phase 11: the three CC kernels against their plain versions on the
+    card and against the host oracle, on a batch folio's binarized page
+    and on its rotated, eroded, separator-masked page; and on the phase-5
+    folio, whose black runs overflow the run capacity: kernel and plain
+    version report the same overflow and paint the same page."""
+    p = PreprocParams()
+    packed, (H, W) = device_raster._binarize_pack(big_page.image)
+    pk = torch.from_numpy(packed).to(dev)
+    for mode in (cc.MODE_BLACK, cc.MODE_WHITE):
+        got, ok = cc.cc_filter(pk, H, W, p.despeckle_amt, mode)
+        ref, ok_ref = cc.filter_reference(pk, H, W, p.despeckle_amt, mode,
+                                          False, cc.MAX_RUNS)
+        check(torch.equal(got, ref) and torch.equal(ok, ok_ref),
+              f"cc_filter mode {mode} differs from its plain version on an "
+              f"overflowing page")
+        print(f"cc_filter: phase-5 folio mode {mode}: ok {ok.tolist()} "
+              f"(capacity {cc.MAX_RUNS}), equal to the plain version")
+    packed, (H, W) = device_raster._binarize_pack(page.image)
+    binar = cc.unpack_page(packed, H, W)
+    pk = torch.from_numpy(packed).to(dev)
+    Wq = pk.shape[1]
+    oracles = {cc.MODE_BLACK: lambda k: oracle.despeckle(binar, k),
+               cc.MODE_WHITE: lambda k: ~oracle.despeckle(~binar, k),
+               cc.MODE_TALL: lambda k: oracle.remove_tall_ccs(binar, k)}
+    n_runs = {}
+    for mode, want in oracles.items():
+        for k in (1, 3, 25, 175):
+            got, ok = cc.cc_filter(pk, H, W, k, mode)
+            ref, ok_ref = cc.filter_reference(pk, H, W, k, mode, False,
+                                              cc.MAX_RUNS)
+            check(torch.equal(got, ref) and torch.equal(ok, ok_ref),
+                  f"cc_filter mode {mode} k {k} differs from its plain "
+                  f"version")
+            check(int(ok[0]) == 1, f"cc_filter: the folio overflows "
+                  f"{cc.MAX_RUNS} runs ({int(ok[1])})")
+            check(np.array_equal(cc.unpack_page(got.cpu().numpy(), H, W),
+                                 want(k)),
+                  f"cc_filter mode {mode} k {k} differs from the oracle")
+            n_runs[mode] = int(ok[1])
+    print(f"cc_filter: {H} x {W} page (Wq={Wq}), black runs "
+          f"{n_runs[cc.MODE_BLACK]}, white runs {n_runs[cc.MODE_WHITE]}; "
+          f"3 modes x 4 thresholds identical to the plain version and the "
+          f"oracle")
+    damt, sat = p.despeckle_amt, p.sat_area_thresh
+    f_ms = median_ms(lambda: cc.cc_filter(pk, H, W, damt, cc.MODE_BLACK))
+    _, f_plain = timed_once(lambda: cc.filter_reference(
+        pk, H, W, damt, cc.MODE_BLACK, False, cc.MAX_RUNS))
+
+    got, ok = cc.cc_clean(pk, H, W, damt, sat)
+    ref, ok_ref = cc.clean_reference(pk, H, W, damt, sat, False,
+                                     cc.MAX_RUNS)
+    want = oracle.remove_tall_ccs(
+        ~oracle.despeckle(~oracle.despeckle(binar, damt), damt), sat)
+    check(torch.equal(got, ref) and torch.equal(ok, ok_ref),
+          "cc_clean differs from its plain version")
+    check(int(ok[0]) == 1 and np.array_equal(
+        cc.unpack_page(got.cpu().numpy(), H, W), want),
+        "cc_clean differs from the oracle chain")
+    c_ms = median_ms(lambda: cc.cc_clean(pk, H, W, damt, sat))
+    _, c_plain = timed_once(lambda: cc.clean_reference(
+        pk, H, W, damt, sat, False, cc.MAX_RUNS))
+
+    bin_rot, eroded, wire = rd.raster_program_a(pk, H, W, damt, sat)
+    wire = wire.cpu().numpy()
+    angle = sd.angle_from_indices(*wire[-4:-1].tolist())
+    H2, _ = rd.exact_canvas(H, W, angle)
+    _, sep_rows, _ = _peaks_and_separators(wire[:-4][:H2].astype(np.int64),
+                                           p)
+    mask = torch.zeros(eroded.shape[0], dtype=torch.bool, device=dev)
+    for r in sep_rows:
+        mask[r: r + 2] = True
+    er = eroded & ~mask[:, None]
+    pke = rd.pack_bool(er)
+    He, We = er.shape
+    thr = p.noise_area_thresh
+    tab, okt = cc.cc_table(pke, He, We, thr, device_raster._MAX_CCS)
+    tab_ref, okt_ref = cc.table_reference(pke, He, We, thr,
+                                          device_raster._MAX_CCS,
+                                          cc.TABLE_MAX_RUNS)
+    _, want_t = oracle.cc_stats(er.cpu().numpy())
+    want_t = want_t[want_t[:, 4] > thr]
+    count = int(okt[1])
+    check(torch.equal(tab, tab_ref) and torch.equal(okt, okt_ref),
+          "cc_table differs from its plain version")
+    check(int(okt[0]) == 1 and count == len(want_t) and np.array_equal(
+        tab[:count].cpu().numpy(), want_t), "cc_table differs from the "
+          "oracle's cc_stats")
+    t_ms = median_ms(lambda: cc.cc_table(pke, He, We, thr,
+                                         device_raster._MAX_CCS))
+    _, t_plain = timed_once(lambda: cc.table_reference(
+        pke, He, We, thr, device_raster._MAX_CCS, cc.TABLE_MAX_RUNS))
+    n_er = cc._runs(pke, He, We, False, cc.TABLE_MAX_RUNS)[3]
+    print(f"cc_clean: chain despeckle {damt} / white {damt} / tall {sat} "
+          f"identical to the plain version and the oracle; kernel "
+          f"{c_ms:.3f} ms plain {c_plain:.3f} ms")
+    print(f"cc_table: eroded page {He} x {We} with {len(sep_rows)} "
+          f"separators, {n_er} runs, {count} components of area > {thr}, "
+          f"identical to the plain version and the oracle; kernel "
+          f"{t_ms:.3f} ms plain {t_plain:.3f} ms")
+    print(f"cc_filter: despeckle {damt} kernel {f_ms:.3f} ms plain "
+          f"{f_plain:.3f} ms")
+    page_bytes = 4 * H * Wq
+    return {
+        "cc_filter": {"max_abs_err": 0.0, "ms": f_ms, "plain_ms": f_plain,
+                      **bound(2 * page_bytes + 8,
+                              cc_ops(H, Wq, n_runs[cc.MODE_BLACK])),
+                      "library_ms": None},
+        "cc_clean": {"max_abs_err": 0.0, "ms": c_ms, "plain_ms": c_plain,
+                     **bound(2 * page_bytes + 4,
+                             3 * cc_ops(H, Wq, n_runs[cc.MODE_BLACK])),
+                     "library_ms": None},
+        "cc_table": {"max_abs_err": 0.0, "ms": t_ms, "plain_ms": t_plain,
+                     **bound(4 * pke.numel() + 20 * device_raster._MAX_CCS
+                             + 8, cc_ops(He, pke.shape[1], n_er)),
+                     "library_ms": None},
+    }
+
+
+def phase_skew(dev, page):
+    """Phase 12: the skew search on the card against the host oracle on
+    the folio and on two rotated copies."""
+    packed, (H, W) = device_raster._binarize_pack(page.image)
+    binar = cc.unpack_page(packed, H, W)
+    line = []
+    for angle in (None, 1.37, -2.6):
+        img = oracle.rotate_onebit(binar, angle) if angle else binar
+        got = sd.rotation_angle_projections(img.astype(np.uint8), device=dev)
+        want = oracle.rotation_angle_projections(img, -6, 6)
+        check(got == want, f"skew search on the card {got} != oracle {want}")
+        t = torch.from_numpy(img).to(dev)
+        ms = median_ms(lambda: sd.search(t))
+        line.append(f"{img.shape[0]}x{img.shape[1]} angle {got} "
+                    f"{ms:.3f} ms")
+    print("skew search on the card, equal to the oracle: " + "; ".join(line))
+
+
+def batch_json(results):
+    return [None if r is None else json.dumps(r.json_dict, sort_keys=True)
+            for r in results]
+
+
+def per_folio(timer, n):
+    return {k: round(v * 1e3 / n, 3) for k, v in timer.totals.items()}
+
+
+def phase_batch(path, dev):
+    """Phase 13: process_batch on N_FOLIOS full-size folios on the card,
+    in both raster modes, against the sequential process(). Returns the
+    launches of the device-raster run."""
+    pages = [make_batch_folio(3000 + k) for k in range(N_FOLIOS)]
+    folios = [(pg.image, pg.transcript) for pg in pages]
+    seq, seq_timer = [], stage_timer(enabled=True)
+    run_process(pages[0], path)  # warm-up
+    t0 = time.perf_counter()
+    for pg in pages:
+        out = run_process(pg, path, seq_timer)
+        seq.append(None if out is None else json.dumps(
+            to_JSON_dict(out[0], out[2]), sort_keys=True))
+    seq_ms = (time.perf_counter() - t0) * 1e3 / N_FOLIOS
+    check(any(j is not None for j in seq), "no folio produced OCR")
+    rec = _resolve_recognizer(path, "hybrid", dev)
+    launches = None
+    env = os.environ.get("TEXT_ALIGNMENT_TPU_RASTER")
+    try:
+        for mode in ("host", "device"):
+            os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = mode
+            process_batch(folios[:2], rec, backend="hybrid", device=dev)
+            fb = device_raster.fallbacks
+            timer = stage_timer(enabled=True)
+            _kernels.reset_launches()
+            res, ms = wall_ms(lambda: process_batch(
+                folios, rec, backend="hybrid", timer=timer, device=dev))
+            run_launches = dict(_kernels.launches)
+            same = batch_json(res) == seq
+            print(f"batch ({'a' if mode == 'host' else 'b'}) raster {mode}: "
+                  f"{N_FOLIOS} folios {ms / N_FOLIOS:.1f} ms per folio, "
+                  f"stages ms per folio {per_folio(timer, N_FOLIOS)}; "
+                  f"sequential process() {seq_ms:.1f} ms per folio, "
+                  f"stages {per_folio(seq_timer, N_FOLIOS)}; JSON "
+                  f"identical {same}; fallbacks "
+                  f"{device_raster.fallbacks - fb}; launches {run_launches}")
+            check(same, f"process_batch (raster {mode}) differs from the "
+                  f"sequential process()")
+            if mode == "device":
+                check(device_raster.fallbacks == fb,
+                      "the device raster fell back to the host")
+                for name in ("cc_clean", "cc_table"):
+                    check(run_launches[name] >= N_FOLIOS,
+                          f"{name} launched {run_launches[name]} times")
+                launches = run_launches
+        # one more page on a lowered run capacity: it must fall back
+        saved, fb = cc.MAX_RUNS, device_raster.fallbacks
+        cc.MAX_RUNS = 5000
+        try:
+            res = process_batch(folios[:1], rec, backend="hybrid",
+                                device=dev)
+        finally:
+            cc.MAX_RUNS = saved
+        fell = device_raster.fallbacks - fb
+        print(f"batch (b) at a run capacity of 5000: fallbacks {fell}, JSON "
+              f"identical {batch_json(res) == seq[:1]}")
+        check(fell == 1 and batch_json(res) == seq[:1],
+              "the overflowing page did not fall back to an identical JSON")
+    finally:
+        if env is None:
+            os.environ.pop("TEXT_ALIGNMENT_TPU_RASTER", None)
+        else:
+            os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = env
+    return launches
+
+
 def main() -> int:
     phase_card()
     phase_build()
     tl.pin_float32()
     dev = torch.device("cuda")
     page = make_folio()
-    image, eroded, _ = _reuse.preprocess_images(page.image, backend="hybrid")
-    strips, _, _ = _reuse.identify_text_lines(image, eroded,
-                                              backend="hybrid")
+    image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+    strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
     inks = [s.img for s in strips]
     check(len(inks) >= 8, f"folio segmented into {len(inks)} lines only")
-    codec = _reuse.Codec()
+    codec = Codec()
     params_np = peaky_params(0, len(codec))
     rec = SeqRecognizer(tl.params_from_np(params_np), codec,
                         normalize_on_device=True, device=dev)
     fi = folio_inputs(rec, inks, dev)
     stats = {"lstm_scan": phase_lstm(rec, fi), "lineest_tail": phase_tail(fi)}
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "folio.pyrnn.gz")
-        _reuse.save_pyrnn(path, params_np, codec)
-        launches = phase_slice(page, path)
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "folio.pyrnn.gz")
+    save_pyrnn(path, params_np, codec)
+    launches = phase_slice(page, path)
 
     gpu = phase_cpu_vs_cuda(params_np, codec, inks, fi)
     prof = profile_ocr(gpu, inks)
@@ -557,7 +879,16 @@ def main() -> int:
     launches.update({k: nw_launches[k] for k in ("nw_fill", "nw_traceback")})
     launches["nw_fill_batched"] = grid_launches["2400"]["nw_fill_batched"]
 
+    stats.update(phase_cc(dev, make_batch_folio(3000), page))
+    phase_skew(dev, page)
+    batch_launches = phase_batch(path, dev)
+    tmp.cleanup()
+    # the CC kernels' launches: process_batch with the raster on the card
+    launches.update({k: batch_launches[k]
+                     for k in ("cc_filter", "cc_clean", "cc_table")})
+
     pallas = "text_alignment_tpu/align/nw_pallas.py"
+    cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"
     csrc = "text_alignment_tpu_torch/csrc"
     sources = {"lstm_scan": (f"{csrc}/lstm_scan.cu",
                              "text_alignment_tpu/models/lstm_pallas.py:175"),
@@ -566,10 +897,16 @@ def main() -> int:
                    "text_alignment_tpu/models/lineest_pallas.py:185"),
                "nw_fill": (f"{csrc}/nw_fill.cu", f"{pallas}:238"),
                "nw_fill_batched": (f"{csrc}/nw_fill.cu", f"{pallas}:444"),
-               "nw_traceback": (f"{csrc}/nw_traceback.cu", f"{pallas}:733")}
+               "nw_traceback": (f"{csrc}/nw_traceback.cu", f"{pallas}:733"),
+               "cc_filter": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:443"),
+               "cc_table": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:537"),
+               "cc_clean": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:662")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name], **stats[name]}
                for name, (src, rep) in sources.items()]
+    for k in kernels:
+        check(k["launches"] >= 1, f"kernel {k['name']} was not launched on "
+              f"its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """``python -m text_alignment_tpu_torch align`` against the JAX package's
 ``align`` on the same fixture folio: the JSON it writes is equal, with OCR
-from a .pyrnn.gz model on the CPU and with reused OCR pickles."""
+from a .pyrnn.gz model on the CPU and with reused OCR pickles; and the
+batched ``--batch`` run against the sequential loop."""
 
 import csv
 import json
@@ -13,9 +14,10 @@ from PIL import Image
 
 from text_alignment_tpu.cli import main as jax_main
 from text_alignment_tpu.synth import corrupt_ocr, make_page, ocr_with_spaces
-from text_alignment_tpu_torch import _reuse
 from text_alignment_tpu_torch.cli import main
+from text_alignment_tpu_torch.models.codec import Codec
 from text_alignment_tpu_torch.models.lstm import init_params_np
+from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
 
 torch.set_num_threads(1)
 
@@ -39,9 +41,9 @@ def fixture_dir(tmp_path_factory):
         row = [""] * 15
         row[2], row[3], row[10], row[14] = "001r", "1", "1", page.transcript
         w.writerow(row)
-    d = init_params_np(np.random.default_rng(0), 48, 16, len(_reuse.Codec()))
+    d = init_params_np(np.random.default_rng(0), 48, 16, len(Codec()))
     d["W2"] *= 20.0
-    _reuse.save_pyrnn(str(root / "m.pyrnn.gz"), d, _reuse.Codec())
+    save_pyrnn(str(root / "m.pyrnn.gz"), d, Codec())
     return root
 
 
@@ -67,6 +69,11 @@ def test_align_json_matches_jax(fixture_dir, reuse):
         assert got["syl_boxes"]
 
 
-def test_batch_is_refused_with_the_roadmap_item(fixture_dir, capsys):
-    assert main(_args(fixture_dir, "t_batch", "--batch", "4")) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_batch_is_refused_with_the_roadmap_item(fixture_dir):
+    """``--batch`` was refused until the batched pipeline was ported; now
+    ``--batch 4`` runs it and writes the sequential loop's JSON."""
+    assert main(_args(fixture_dir, "t_batch", "--batch", "4", "--device",
+                      "cpu")) == 0
+    assert main(_args(fixture_dir, "t_seq", "--device", "cpu")) == 0
+    got = (fixture_dir / "t_batch" / "synth_001r.json").read_text()
+    assert got == (fixture_dir / "t_seq" / "synth_001r.json").read_text()

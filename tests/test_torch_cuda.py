@@ -1,5 +1,6 @@
 """Hardware lane of the port: each CUDA kernel against its plain PyTorch
-version on the card, at the main-path shapes and at odd ones. Marked
+version on the card, at the main-path shapes and at odd ones, and the skew
+search on the card against the host oracle. Marked
 ``cuda``; every test skips when ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it, where
@@ -180,3 +181,72 @@ def test_nw_wrappers_reject_bad_inputs(cuda):
         nw_kernel.traceback_batched(packed, nts, nos + 1000)
     with pytest.raises(ValueError):  # int64 sizes
         nw_kernel.traceback_batched(packed, nts.long(), nos)
+
+
+def _cc_pages():
+    rng = np.random.default_rng(21)
+    bars = np.zeros((300, 1000), bool)
+    bars[:, ::3] = True
+    bars[150, :] = True
+    return {"random30": rng.random((257, 999)) < 0.3,
+            "random60": rng.random((64, 96)) < 0.6,
+            "bars": bars, "empty": np.zeros((40, 33), bool)}
+
+
+@pytest.mark.parametrize("name", list(_cc_pages()))
+def test_cc_kernels_match_plain(cuda, name):
+    from text_alignment_tpu_torch.ops import cc
+
+    img = _cc_pages()[name]
+    H, W = img.shape
+    page = torch.from_numpy(cc.pack_page(img))
+    dev = page.to(cuda)
+    for mode in (cc.MODE_BLACK, cc.MODE_WHITE, cc.MODE_TALL):
+        for k in (0, 3, 25, 175):
+            before = _kernels.launches["cc_filter"]
+            got, ok = cc.cc_filter(dev, H, W, k, mode, by_area=k == 25)
+            assert _kernels.launches["cc_filter"] == before + 1
+            ref, ok_ref = cc.filter_reference(page, H, W, k, mode, k == 25,
+                                              cc.MAX_RUNS)
+            assert torch.equal(got.cpu(), ref) and torch.equal(ok.cpu(),
+                                                               ok_ref)
+    got, ok = cc.cc_clean(dev, H, W, 10, 20)
+    ref, ok_ref = cc.clean_reference(page, H, W, 10, 20, False, cc.MAX_RUNS)
+    assert torch.equal(got.cpu(), ref) and torch.equal(ok.cpu(), ok_ref)
+    for thresh in (-1, 4):
+        got, ok = cc.cc_table(dev, H, W, thresh, 4096)
+        ref, ok_ref = cc.table_reference(page, H, W, thresh, 4096,
+                                         cc.TABLE_MAX_RUNS)
+        assert torch.equal(got.cpu(), ref) and torch.equal(ok.cpu(), ok_ref)
+
+
+def test_cc_kernels_overflow_like_plain(cuda):
+    from text_alignment_tpu_torch.ops import cc
+
+    img = np.zeros((64, 90), bool)
+    img[::2, ::2] = True  # 1440 black runs and components, 1472 white runs
+    page = torch.from_numpy(cc.pack_page(img))
+    got, ok = cc.cc_filter(page.to(cuda), 64, 90, 0, cc.MODE_WHITE,
+                           max_runs=512)
+    ref, ok_ref = cc.filter_reference(page, 64, 90, 0, cc.MODE_WHITE, False,
+                                      512)
+    assert torch.equal(got.cpu(), ref)
+    assert ok.tolist() == ok_ref.tolist() and ok_ref.tolist()[0] == 0
+    tab, ok = cc.cc_table(page.to(cuda), 64, 90, -1, 100)
+    tab_ref, ok_ref = cc.table_reference(page, 64, 90, -1, 100, 8192)
+    assert torch.equal(tab.cpu(), tab_ref)
+    assert ok.tolist() == ok_ref.tolist() == [0, 100]
+
+
+def test_skew_search_on_the_card(cuda):
+    from text_alignment_tpu_torch.ops import oracle
+    from text_alignment_tpu_torch.ops import skew_device as sd
+    from text_alignment_tpu_torch.synth import make_page
+
+    page = make_page(np.random.default_rng(12), n_lines=4, words_per_line=2)
+    img = oracle.to_onebit(page.image)
+    for angle in (None, 1.37, -2.6):
+        a = oracle.rotate_onebit(img, angle) if angle else img
+        assert (sd.rotation_angle_projections(a.astype(np.uint8),
+                                              device=cuda)
+                == oracle.rotation_angle_projections(a, -6, 6))

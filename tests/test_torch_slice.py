@@ -27,10 +27,13 @@ from text_alignment_tpu.models.recognizer import SeqRecognizer as JaxRec
 from text_alignment_tpu.pipeline.process import process as jax_process
 from text_alignment_tpu.pipeline.process import to_JSON_dict as jax_json
 from text_alignment_tpu.synth import make_page
-from text_alignment_tpu_torch import _reuse
+from text_alignment_tpu_torch.models.codec import Codec as TCodec
 from text_alignment_tpu_torch.models.lstm import init_params_np, params_from_np
+from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
 from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
 from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
+from text_alignment_tpu_torch.pipeline.preprocess import (
+    identify_text_lines, preprocess_images)
 
 torch.set_num_threads(1)
 
@@ -55,13 +58,12 @@ def case():
     page = make_page(np.random.default_rng(42), n_lines=4, words_per_line=2,
                      H=800, W=700, char_h=50, char_w=30, gap=6, space_w=40,
                      line_spacing=150, speckles=30, margin_x=30)
-    image, eroded, _ = _reuse.preprocess_images(page.image, backend="hybrid")
-    strips, _, _ = _reuse.identify_text_lines(image, eroded,
-                                              backend="hybrid")
+    image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+    strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
     assert len(strips) >= 3
     d = peaky_params()
     rec_j = JaxRec(jax_params(d), Codec(), normalize_on_device=True)
-    rec_t = SeqRecognizer(params_from_np(d), _reuse.Codec(),
+    rec_t = SeqRecognizer(params_from_np(d), TCodec(),
                           normalize_on_device=True, device="cpu")
     return page, [s.img for s in strips], rec_j, rec_t
 
@@ -127,7 +129,7 @@ def test_host_normalizer_branch_matches_jax(case):
     _, inks, _, _ = case
     d = peaky_params()
     rows_j = JaxRec(jax_params(d), Codec()).recognize_batch(inks)
-    rows_t = SeqRecognizer(params_from_np(d), _reuse.Codec(),
+    rows_t = SeqRecognizer(params_from_np(d), TCodec(),
                            device="cpu").recognize_batch(inks)
     assert rows_t == rows_j
 
@@ -142,7 +144,7 @@ def test_process_json_matches_jax(case):
                         backend="hybrid", verbose=False)
     out_t = process(page.image, page.transcript,
                     ocropus_model=SeqRecognizer(params_from_np(d),
-                                                _reuse.Codec()),
+                                                TCodec(), device="cpu"),
                     backend="hybrid", verbose=False, device="cpu")
     assert out_j is not None and out_t is not None
     assert to_JSON_dict(out_t[0], out_t[2]) == jax_json(out_j[0], out_j[2])
@@ -171,7 +173,7 @@ def test_process_from_pyrnn_path(case, tmp_path):
     page, _, _, _ = case
     d = peaky_params()
     path = str(tmp_path / "m.pyrnn.gz")
-    _reuse.save_pyrnn(path, d, _reuse.Codec())
+    save_pyrnn(path, d, TCodec())
     out_t = process(page.image, page.transcript, ocropus_model=path,
                     backend="hybrid", verbose=False, device="cpu")
     out_j = jax_process(page.image, page.transcript, ocropus_model=path,

@@ -5,11 +5,27 @@ the reference's ``syl_boxes`` JSON, like ``text_alignment_tpu``, whose JAX
 package stays beside it as the reference the port is tested against.
 
 Layer map of the slices ported so far (one folio through ``process()``, NW
-alignment and the scoring grid search):
+alignment and the scoring grid search, the manuscript batch):
 
-- ``pipeline.process`` — ``process()`` and ``to_JSON_dict``. The raster,
-  line segmentation and assembly are the JAX package's framework-free host
-  code, reached through ``_reuse``.
+- ``parallel.batch`` — ``process_batch``: many folios stage-major, the OCR
+  queued on the card while the host rasters the next folio, NW batched by
+  size bucket; with ``TEXT_ALIGNMENT_TPU_RASTER=device`` the raster runs
+  on the card (``pipeline.device_raster``).
+- ``pipeline.process`` — ``process()`` and ``to_JSON_dict``.
+- ``pipeline.preprocess`` / ``pipeline.assemble`` / ``pipeline.render`` —
+  the raster, line segmentation and assembly: the port's own copies of the
+  JAX package's framework-free host code (as are ``lang``, ``charbox``,
+  ``textio``, ``synth``, ``models.codec``, ``models.pyrnn``,
+  ``models.lineest_host``, ``align.scoring``, ``align.nw_host``,
+  ``align.traceback``, ``utils`` and ``ops.oracle`` / ``fixedpoint`` /
+  ``projections`` / ``host_native``).
+- ``pipeline.device_raster`` / ``ops.raster_device`` — the raster on a
+  device: programs A (cleanup, skew, rotation, erosion, projection), B
+  (separator-masked CC table) and C (strip cutting).
+- ``ops.cc`` / ``ops.cc_kernel`` — connected components over a bit-packed
+  page (filter pass, cleanup chain, stats table), hand-written CUDA kernels
+  beside their plain PyTorch version. ``ops.skew_device`` — the skew
+  search on a device.
 - ``evaluate`` — ``grid_search`` over the scoring grid.
 - ``align.api`` — ``perform_alignment`` and ``align_grid``: NW on the host
   fill or on a device. ``align.nw_torch`` — one pair, batches of pairs
@@ -26,7 +42,9 @@ alignment and the scoring grid search):
 - ``_kernels`` — builds ``csrc/*.cu`` with ``nvcc`` at first CUDA use and
   binds it with ``ctypes``.
 
-The package imports ``torch`` and never ``jax``.
+The package imports ``torch`` and never ``jax``, nor any file of the JAX
+package. Its entry points run on the card unless the caller names the CPU
+(``device="cpu"``, CLI ``--device cpu``); without a card they raise.
 """
 
 __version__ = "0.1.0"

@@ -31,7 +31,7 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("lstm_scan.cu", "lineest_tail.cu", "nw_fill.cu",
-           "nw_traceback.cu")
+           "nw_traceback.cu", "cc_filter.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 
 launches = {"lstm_scan": 0, "lineest_tail": 0, "nw_fill": 0,
-            "nw_fill_batched": 0, "nw_traceback": 0}
+            "nw_fill_batched": 0, "nw_traceback": 0, "cc_filter": 0,
+            "cc_table": 0, "cc_clean": 0}
 build_seconds: float | None = None  # wall time of the last nvcc build
 
 _lib = None
@@ -138,6 +139,15 @@ def lib():
         L.ta_nw_fill_batched.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         L.ta_nw_traceback_batched.restype = i
         L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
+        L.ta_cc_scratch_ints.restype = ctypes.c_size_t
+        L.ta_cc_scratch_ints.argtypes = [i, i]
+        L.ta_cc_filter.restype = i
+        L.ta_cc_filter.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        L.ta_cc_table.restype = i
+        L.ta_cc_table.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        L.ta_cc_clean.restype = i
+        L.ta_cc_clean.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                  i, p]
         _lib = L
         return L
 

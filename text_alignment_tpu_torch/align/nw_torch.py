@@ -16,8 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._reuse import BOUNDARY_GAP_EXTEND, DensePtrView, fill_host, traceback
 from . import nw_kernel
+from .nw_host import fill_host
+from .scoring import BOUNDARY_GAP_EXTEND
+from .traceback import DensePtrView, traceback
 
 # Packed pointers one batched fill may hold on the card at once (4 GiB of
 # its 80 GB): the 2400^2 grid (D * L = 5119 * 2560 B per combination) runs
@@ -208,12 +210,13 @@ def align_pairs(pairs, sc, min_device_cells: int | None = None,
     fill (its scoring row shared) and one traceback launch. Returns
     (tra_align, ocr_align) per pair in input order, or None per pair when
     the scoring is not integer match/mismatch (the caller aligns those one
-    by one). Sentinels are appended here."""
+    by one). Sentinels are appended here. ``device``: None means the card
+    (:func:`.api.resolve_device`)."""
     if not kernel_form(sc):
         return [None for _ in pairs]
-    from .._reuse import auto_device_min_cells
+    from .api import auto_device_min_cells, resolve_device
 
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     min_cells = (auto_device_min_cells() if min_device_cells is None
                  else min_device_cells)
     results = [None] * len(pairs)
@@ -253,8 +256,11 @@ def align_grid(transcript, ocr, params_list, device=None):
     one OCR row (``shared_feed``) and its own scoring row (``per_pair``);
     the combination axis is cut into launches whose packed pointers stay
     within ``PTR_BUDGET``. Returns (tra_align, ocr_align) per row.
-    Sentinels are appended here."""
-    device = torch.device(device if device is not None else "cpu")
+    Sentinels are appended here. ``device``: None means the card
+    (:func:`.api.resolve_device`)."""
+    from .api import resolve_device
+
+    device = resolve_device(device)
     transcript = list(transcript) + [" "]
     ocr = list(ocr) + [" "]
     t_ids, o_ids = _token_ids(transcript, ocr)

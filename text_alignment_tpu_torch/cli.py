@@ -5,9 +5,12 @@ Usage:
         --manuscript salzinnes --model model.pyrnn.gz \\
         --png-dir ./png --out-json ./out_json --folios 60 61 --device cuda
 
-Counterpart of ``text_alignment_tpu/cli.py``'s ``align`` (the folio-at-a-
-time loop). The other subcommands, ``--batch`` and ``--cache-dir`` are not
-ported yet (ROADMAP queue A).
+Counterpart of ``text_alignment_tpu/cli.py``'s ``align``: the folio-at-a-
+time loop, and with ``--batch N`` the stage-major batched pipeline
+(``parallel.batch.process_batch``, N folios per call; set
+``TEXT_ALIGNMENT_TPU_RASTER=device`` to run its raster on the card). The
+card is the default device; ``--device cpu`` runs on the CPU. The other
+subcommands and ``--cache-dir`` are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -40,22 +43,21 @@ def _folio_ids(values, text_func=None):
 
 
 def cmd_align(args):
-    from . import _reuse
+    from .lang import filename_to_text_func
     from .pipeline import process, to_JSON_dict
+    from .pipeline.render import draw_results_on_page
+    from .utils.timing import stage_timer
 
-    if args.batch and args.batch > 1:
-        print("--batch > 1 (the stage-major batched pipeline) is not ported "
-              "yet: ROADMAP queue A, item 7 (parallel/batch.py)",
-              file=sys.stderr)
-        return 2
-    text_func = _reuse.filename_to_text_func(args.csv, args.mapping)
+    text_func = filename_to_text_func(args.csv, args.mapping)
     os.makedirs(args.out_json, exist_ok=True)
     if args.pickle_dir:
         os.makedirs(args.pickle_dir, exist_ok=True)
     if args.out_imgs:
         os.makedirs(args.out_imgs, exist_ok=True)
 
-    timer = _reuse.stage_timer(enabled=args.timing)
+    timer = stage_timer(enabled=args.timing)
+    if args.batch and args.batch > 1:
+        return _align_batched(args, text_func, timer)
     for ind in _folio_ids(args.folios, text_func):
         try:
             fname, transcript = text_func(ind)
@@ -93,9 +95,90 @@ def cmd_align(args):
             with open(ocr_pickle, "wb") as f:
                 pickle.dump(all_chars, f, -1)
         if args.out_imgs:
-            _reuse.draw_results_on_page(
+            draw_results_on_page(
                 raw_image, syl_boxes, lines_peak_locs,
                 os.path.join(args.out_imgs, fname + "_alignment.png"))
+    if args.timing:
+        print(timer.report())
+    return 0
+
+
+def _align_batched(args, text_func, timer):
+    """align --batch N: drain folios through the stage-major batched
+    pipeline (parallel.batch.process_batch) instead of folio-at-a-time
+    process(). Outputs (JSON, --pickle-dir dumps, overlays) are
+    byte-identical to the sequential loop; a chunk groups OCR-injected and
+    model folios into separate process_batch calls since the pipeline fixes
+    the OCR mode per call."""
+    from .parallel.batch import process_batch
+    from .pipeline.process import _resolve_recognizer
+    from .pipeline.render import draw_results_on_page
+    from .utils.ref_pickle import load_charboxes
+
+    items = []  # (fname, transcript, image_path, ocr_pickle, injected)
+    for ind in _folio_ids(args.folios, text_func):
+        try:
+            fname, transcript = text_func(ind)
+        except ValueError as e:
+            print(e)
+            print("no chants listed for page {}".format(ind))
+            continue
+        fname = "{}_{}".format(args.manuscript, fname)
+        text_layer_fname = os.path.join(args.png_dir, fname + "_text.png")
+        if not os.path.isfile(text_layer_fname):
+            print("cannot find files for {}.".format(fname))
+            continue
+        ocr_pickle = (os.path.join(args.pickle_dir, fname + "_boxes.pickle")
+                      if args.pickle_dir else None)
+        injected = None
+        if args.reuse_ocr and ocr_pickle and os.path.isfile(ocr_pickle):
+            with open(ocr_pickle, "rb") as f:
+                injected = load_charboxes(f)
+        items.append((fname, transcript, text_layer_fname, ocr_pickle,
+                      injected))
+
+    needs_model = any(it[4] is None for it in items)
+    recognizer = (_resolve_recognizer(args.model, args.backend, args.device)
+                  if (args.model and needs_model) else None)
+    for lo in range(0, len(items), args.batch):
+        chunk = items[lo:lo + args.batch]
+        for has_ocr in (True, False):
+            idxs = [k for k, it in enumerate(chunk)
+                    if (it[4] is not None) == has_ocr]
+            if not idxs:
+                continue
+            if not has_ocr and recognizer is None:
+                for k in idxs:
+                    print("no model and no reusable OCR for {}; "
+                          "skipping.".format(chunk[k][0]))
+                continue
+            folios = []
+            for k in idxs:
+                fname, transcript, img_path, _, _ = chunk[k]
+                print("processing {}...".format(fname))
+                folios.append((_load_image(img_path), transcript))
+            results = process_batch(
+                folios, None if has_ocr else recognizer,
+                backend=args.backend, timer=timer,
+                existing_ocr=([chunk[k][4] for k in idxs] if has_ocr
+                              else None),
+                strict=args.strict, device=args.device)
+            for k, res in zip(idxs, results):
+                fname, _, img_path, ocr_pickle, _ = chunk[k]
+                if res is None:
+                    continue
+                out_path = os.path.join(args.out_json, fname + ".json")
+                with open(out_path, "w") as f:
+                    json.dump(res.json_dict, f)
+                print("wrote {}".format(out_path))
+                if args.pickle_dir:
+                    with open(ocr_pickle, "wb") as f:
+                        pickle.dump(res.all_chars, f, -1)
+                if args.out_imgs:
+                    draw_results_on_page(
+                        _load_image(img_path), res.syl_boxes, res.peaks,
+                        os.path.join(args.out_imgs,
+                                     fname + "_alignment.png"))
     if args.timing:
         print(timer.report())
     return 0
@@ -116,12 +199,14 @@ def main(argv=None):
     a.add_argument("--out-imgs", default=None)
     a.add_argument("--folios", nargs="+", required=True)
     a.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
-    a.add_argument("--device", default=None,
-                   help="torch device of the OCR stage, e.g. cuda or cpu "
-                        "(default: cuda when a card is present)")
+    a.add_argument("--device", default="cuda",
+                   help="torch device of the OCR, the device raster and the "
+                        "device NW fill: cuda (default; it fails without a "
+                        "card) or cpu")
     a.add_argument("--reuse-ocr", action="store_true")
     a.add_argument("--batch", type=int, default=0,
-                   help="not ported yet; only 0 or 1 (sequential)")
+                   help="folios per batched-pipeline call (process_batch); "
+                        "0 or 1: the sequential loop")
     a.add_argument("--timing", action="store_true")
     a.add_argument("--no-strict", dest="strict", action="store_false",
                    help="fix the documented reference defects instead of "

@@ -4,22 +4,135 @@ Counterpart of ``text_alignment_tpu/evaluate.py``'s ``grid_search``: the
 729-combination scoring grid (``scoring_grid``) runs every fixture through
 the port's ``process()`` once per combination, with the raster stages and
 the OCR stream injected, so only NW and assembly rerun. The metrics
-(``evaluate_alignment``, ``parse_gt_xml``) are the JAX package's host code,
-reached through ``_reuse``.
+(``evaluate_alignment``, ``parse_gt_xml``) and the grid are copies of the
+JAX package's host code.
+
+Reference semantics: evaluate_text_alignment.py:16-198. Ground truth is
+PASCAL-VOC-style XML per folio (``{fname}_gt.xml`` with
+object/name/difficult/bndbox elements); predicted syl boxes are matched by
+substring-compatible syllable text, best by raw intersection; scores are
+bbox IoU and ink-pixel ("black area") IoU.
 """
 
 from __future__ import annotations
 
+import xml.etree.ElementTree as ET
+from itertools import product
+
 import numpy as np
 
-from ._reuse import (
-    evaluate_alignment,
-    expand_abbreviations,
-    identify_text_lines,
-    preprocess_images,
-    scoring_grid,
-)
 from .align.api import align_grid, resolve_device
+from .ops import oracle
+from .pipeline.assemble import expand_abbreviations
+from .pipeline.preprocess import identify_text_lines, preprocess_images
+
+def intersect(bb1, bb2):
+    """Overlap area of two {'ul','lr'} boxes, or False
+    (evaluate_text_alignment.py:16-31)."""
+    lr1, ul1 = bb1["lr"], bb1["ul"]
+    lr2, ul2 = bb2["lr"], bb2["ul"]
+    dx = min(lr1[0], lr2[0]) - max(ul1[0], ul2[0])
+    dy = min(lr1[1], lr2[1]) - max(ul1[1], ul2[1])
+    if (dx > 0) and (dy > 0):
+        return dx * dy
+    return False
+
+
+def IOU(bb1, bb2):
+    """Bounding-box intersection over union (evaluate_text_alignment.py:34-53)."""
+    lr1, ul1 = bb1["lr"], bb1["ul"]
+    lr2, ul2 = bb2["lr"], bb2["ul"]
+    new_ulx = max(ul1[0], ul2[0])
+    new_uly = max(ul1[1], ul2[1])
+    new_lrx = min(lr1[0], lr2[0])
+    new_lry = min(lr1[1], lr2[1])
+    area_int = (new_lrx - new_ulx) * (new_lry - new_uly)
+    area_1 = (lr1[0] - ul1[0]) * (lr1[1] - ul1[1])
+    area_2 = (lr2[0] - ul2[0]) * (lr2[1] - ul2[1])
+    return float(area_int) / (area_1 + area_2 - area_int)
+
+
+def black_area_IOU(bb1, bb2, image: np.ndarray):
+    """Ink-pixel IoU over a binarized page (evaluate_text_alignment.py:56-76)."""
+    lr1, ul1 = bb1["lr"], bb1["ul"]
+    lr2, ul2 = bb2["lr"], bb2["ul"]
+    new_ul = (max(ul1[0], ul2[0]), max(ul1[1], ul2[1]))
+    new_lr = (min(lr1[0], lr2[0]), min(lr1[1], lr2[1]))
+
+    bb1_black = oracle.black_area(oracle.subimage(image, ul1, lr1))
+    bb2_black = oracle.black_area(oracle.subimage(image, ul2, lr2))
+    intersect_black = oracle.black_area(oracle.subimage(image, new_ul, new_lr))
+
+    denom = bb1_black + bb2_black - intersect_black
+    if denom == 0:
+        return 0.0
+    return float(intersect_black) / denom
+
+
+def parse_gt_xml(path: str) -> list[dict]:
+    """PASCAL-VOC-ish ground truth boxes (evaluate_text_alignment.py:82-98)."""
+    gt_xml = ET.parse(path)
+    gt_boxes = []
+    for el in list(gt_xml.getroot()):
+        if not el.tag == "object":
+            continue
+        diff = int(el.find("difficult").text)
+        name = el.find("name").text
+        bb = el.find("bndbox")
+        ul = (int(bb.find("xmin").text), int(bb.find("ymin").text))
+        lr = (int(bb.find("xmax").text), int(bb.find("ymax").text))
+        gt_boxes.append({"syl": name, "difficult": diff, "ul": ul, "lr": lr})
+    return gt_boxes
+
+
+def evaluate_alignment(gt_boxes, align_boxes, image: np.ndarray,
+                       eval_difficult: bool = False):
+    """Mean (bbox IoU, ink IoU) of predicted boxes against ground truth
+    (evaluate_text_alignment.py:109-131). ``image`` is the binarized page
+    (un-rotated — the reference preprocesses with correct_rotation=False)."""
+    score = {}
+    area_score = {}
+    for box in gt_boxes:
+        if box["difficult"] and not eval_difficult:
+            continue
+        same_syl_boxes = [
+            x
+            for x in align_boxes
+            if x["syl"] in box["syl"] or box["syl"] in x["syl"]
+        ]
+        if not same_syl_boxes:
+            score[box["syl"]] = 0
+            area_score[box["syl"]] = 0
+            continue
+        ints = [intersect(box, x) for x in same_syl_boxes]
+        if not any(ints):
+            score[box["syl"]] = 0
+            area_score[box["syl"]] = 0
+            continue
+        best_box = same_syl_boxes[ints.index(max(ints))]
+        score[box["syl"]] = IOU(box, best_box)
+        area_score[box["syl"]] = black_area_IOU(box, best_box, image)
+
+    return (
+        float(np.mean(list(score.values()))),
+        float(np.mean(list(area_score.values()))),
+    )
+
+
+DEFAULT_GRID = (
+    [5, 8, 11],
+    [-4, -7, -10],
+    [-2, -5, -7],
+    [-2, -5, -7],
+    [0, -3, -5],
+    [0, -3, -5],
+)
+
+
+def scoring_grid(grid=DEFAULT_GRID) -> np.ndarray:
+    """The 729-combination scoring grid (evaluate_text_alignment.py:181-189)."""
+    return np.array(list(product(*grid)))
+
 
 # "auto" sends a fixture's whole grid to the batched device fill from this
 # many transcript x OCR cells: the JAX package's rule for its kernel route
@@ -42,8 +155,8 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
     injects each combination's result into ``process()``; "host" leaves NW
     to each ``process()`` call; "auto" (default) takes the device batch
     when ``device`` is a card and the fixture's pair has at least
-    ``GRID_DEVICE_MIN_CELLS`` cells. ``device`` (None: the card when there
-    is one) also runs ``process()``'s own stages.
+    ``GRID_DEVICE_MIN_CELLS`` cells. ``device`` (None: the card; it raises
+    when there is none) also runs ``process()``'s own stages.
 
     Returns (logs, ranked): {params tuple: mean ink-IoU} and its items
     sorted ascending, like the reference's __main__.

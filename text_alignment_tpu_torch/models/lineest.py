@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._reuse import DEFAULT_PAD, DEFAULT_TARGET_HEIGHT
+from .lineest_host import DEFAULT_PAD, DEFAULT_TARGET_HEIGHT
 from .lineest_kernel import tail
 
 _RANGE = 4

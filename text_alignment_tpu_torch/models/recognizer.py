@@ -11,9 +11,12 @@ upload and one program on the device unpacks, normalizes
 reference's, which makes it the parity surface. Otherwise strips are
 normalized on the host by the reference's scipy normalizer.
 
-Not ported yet: the mesh, ``DevicePageStrips`` and ``dispatch_async`` /
-``collect_async`` (they arrive with ``parallel/batch``). There is no kernel
-fallback: a kernel that fails to build or launch raises.
+The batched pipeline (``parallel/batch``) drives the asynchronous half:
+``dispatch_async`` queues a batch (host strips, or a ``DevicePageStrips``
+feed that cuts the strips from a device-resident page with the device
+raster's program C) and returns at once; ``collect_async`` brings any
+number of dispatches back in one copy. Not ported: the mesh. There is no
+kernel fallback: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._reuse import Codec, DEFAULT_PAD, lineest as _host_lineest, load_pyrnn
+from . import lineest_host as _host_lineest
+from .codec import Codec
+from .lineest_host import DEFAULT_PAD
+from .pyrnn import load_pyrnn
 from .ctc import llocs_positions, translate_back_batched
 from .lineest import normalize_batch_device
 from .lstm import BiLSTMParams, bilstm_forward_batched, params_from_np, \
@@ -56,12 +62,13 @@ def _unpack_bits(packed_meta):
     return grey, hs, ws
 
 
-def _recognize_device_impl(params, packed_meta, t_max, target_height, pad,
+def _recognize_device_wire(params, packed_meta, t_max, target_height, pad,
                            max_regions, decode="region"):
     """Device OCR for one bit-packed batch: unpack -> normalize -> BiLSTM
-    -> CTC decode -> wire. Returns (B, 6 + 2 * max_regions) uint16 numpy
-    rows: [count_lo, count_hi, length_lo, length_hi, t_raw_lo, t_raw_hi,
-    frames[max_regions], classes[max_regions]]."""
+    -> CTC decode -> wire, left on the device. The wire is (B, 6 + 2 *
+    max_regions) int32 rows of uint16 values: [count_lo, count_hi,
+    length_lo, length_hi, t_raw_lo, t_raw_hi, frames[max_regions],
+    classes[max_regions]]."""
     grey, hs, ws = _unpack_bits(packed_meta)
     B = grey.shape[0]
     frames, lengths, t_raws = normalize_batch_device(
@@ -72,7 +79,12 @@ def _recognize_device_impl(params, packed_meta, t_max, target_height, pad,
                                          max_regions=max_regions, mode=decode)
     hdr = torch.stack([cnt, lengths, t_raws], dim=1).to(torch.int32)
     hdr16 = torch.stack([hdr & 0xFFFF, (hdr >> 16) & 0xFFFF], dim=2)
-    wire = torch.cat([hdr16.reshape(B, 6), fr, cl], dim=1)
+    return torch.cat([hdr16.reshape(B, 6), fr, cl], dim=1).to(torch.int32)
+
+
+def _recognize_device_impl(*args, **kwargs):
+    """:func:`_recognize_device_wire` copied to the host as uint16 rows."""
+    wire = _recognize_device_wire(*args, **kwargs)
     return wire.cpu().numpy().astype(np.uint16)
 
 
@@ -84,22 +96,52 @@ def _unpack_wire_rows(packed_u16: np.ndarray) -> np.ndarray:
     return np.concatenate([hdr, p[:, 6:]], axis=1)
 
 
+class DevicePageStrips:
+    """OCR feed referencing a whole BIT-PACKED page instead of host strip
+    crops: ``page_packed`` is (H, ceil(W/32)) int32 little-endian bit rows
+    — a numpy array (uploaded once per folio by the dispatch) or a tensor
+    already on the recognizer's device (the device-raster mode, no upload
+    at all). ``bboxes`` are (uly, ulx, h, w) tuples in page coordinates.
+    Passed to ``SeqRecognizer.dispatch_async`` in place of the host strip
+    list."""
+
+    __slots__ = ("page_packed", "bboxes")
+
+    def __init__(self, page_packed, bboxes):
+        self.page_packed = page_packed
+        self.bboxes = list(bboxes)
+
+
+class _ShapeProxy:
+    """Stands in for a host strip array where only ``.shape`` is read
+    (llocs position decode needs the raw strip width)."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = shape
+
+
 class SeqRecognizer:
     """BiLSTM+CTC line recognizer with ocropy-compatible input contract."""
 
     def __init__(self, params: BiLSTMParams, codec: Codec,
                  target_height: int = 48, pad: int = DEFAULT_PAD,
                  normalize_on_device: bool = False, decode: str = "region",
-                 device="cpu"):
+                 device=None):
         """``device``: where the BiLSTM, the decode and (with
-        ``normalize_on_device=True``) the line normalizer run. On a CUDA
-        device they run through the port's kernels; on the CPU through
-        their plain versions. ``decode``: "region" (ocropy parity),
-        "bestpath" or "region_end" (see :mod:`.ctc`)."""
+        ``normalize_on_device=True``) the line normalizer run; None means
+        the card (:func:`..align.api.resolve_device`: it raises when there
+        is none). On a CUDA device they run through the port's kernels; on
+        the CPU (``device="cpu"``) through their plain versions.
+        ``decode``: "region" (ocropy parity), "bestpath" or "region_end"
+        (see :mod:`.ctc`)."""
         if decode not in ("region", "bestpath", "region_end"):
             raise ValueError(f"unknown decode mode {decode!r}")
+        from ..align.api import resolve_device
+
         pin_float32()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.codec = codec
         self.target_height = target_height
@@ -111,7 +153,7 @@ class SeqRecognizer:
         self._fpp_hint: float | None = None
 
     @classmethod
-    def from_pyrnn(cls, path: str, decode: str = "region", device="cpu"):
+    def from_pyrnn(cls, path: str, decode: str = "region", device=None):
         params_np, codec, target_height = load_pyrnn(path)
         return cls(params_from_np(params_np), codec, target_height,
                    decode=decode, device=device)
@@ -166,12 +208,125 @@ class SeqRecognizer:
                 ]
         return results
 
-    def _dispatch_device(self, packed_meta, t_max, max_regions=_MAX_REGIONS):
-        pm = torch.from_numpy(np.ascontiguousarray(packed_meta)).to(
+    def _to_device(self, packed_meta):
+        if isinstance(packed_meta, torch.Tensor):
+            return packed_meta.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(packed_meta)).to(
             self.device)
+
+    def _dispatch_device(self, packed_meta, t_max, max_regions=_MAX_REGIONS):
         return _unpack_wire_rows(_recognize_device_impl(
-            self.params, pm, t_max=t_max, target_height=self.target_height,
-            pad=self.pad, max_regions=max_regions, decode=self.decode))
+            self.params, self._to_device(packed_meta), t_max=t_max,
+            target_height=self.target_height, pad=self.pad,
+            max_regions=max_regions, decode=self.decode))
+
+    def _wire_async(self, pm_dev, t_max):
+        return _recognize_device_wire(
+            self.params, pm_dev, t_max=t_max,
+            target_height=self.target_height, pad=self.pad,
+            max_regions=_WIRE_REGIONS, decode=self.decode)
+
+    def dispatch_async(self, strips):
+        """Queue device OCR for onebit ``strips`` (or a
+        :class:`DevicePageStrips` feed) WITHOUT waiting for it: returns an
+        opaque handle whose device work overlaps whatever the host does
+        next (the next folio's raster). Redeem with ``collect_async``.
+        Grey strips run synchronously (the guard of recognize_batch); the
+        handle then carries the finished rows."""
+        if isinstance(strips, DevicePageStrips):
+            return self._dispatch_async_page(strips)
+        if not strips:
+            return ("rows", [], None)
+        inks = [np.asarray(s) for s in strips]
+        if not all(g.dtype == bool for g in inks):
+            return ("rows", self.recognize_batch(strips), None)
+        packed_meta, hs, ws, Wp = self._pack_strips(inks)
+        t_max = self._initial_t_max(Wp, ws[: len(inks)])
+        out = self._wire_async(self._to_device(packed_meta), t_max)
+        return (inks, out, (t_max, packed_meta, ws))
+
+    def _dispatch_async_page(self, feed: DevicePageStrips):
+        """dispatch_async for a bit-packed page: program C
+        (``ops.raster_device.extract_strips_packed``) cuts the strips from
+        the page on the device into the recognizer's packed wire, then the
+        same OCR program runs. The handle is shaped like dispatch_async's,
+        with the device-resident packed batch in place of the host one, so
+        an escalation re-dispatch reuses it (the caps do not change the
+        cut)."""
+        from ..ops.raster_device import extract_strips_packed
+
+        if not feed.bboxes:
+            return ("rows", [], None)
+        shapes = [(int(h), int(w)) for (_, _, h, w) in feed.bboxes]
+        B, Hp, Wp = self._plan_pack(shapes)
+        bb = np.zeros((B, 4), np.int32)
+        bb[: len(feed.bboxes)] = np.asarray(feed.bboxes, np.int32)
+        ws = np.zeros(B, np.int32)
+        ws[: len(shapes)] = [w for _, w in shapes]
+        t_max = self._initial_t_max(Wp, ws[: len(shapes)])
+        pm_dev = extract_strips_packed(self._to_device(feed.page_packed), bb,
+                                       Hp, Wp)
+        out = self._wire_async(pm_dev, t_max)
+        return ([_ShapeProxy(s) for s in shapes], out, (t_max, pm_dev, ws))
+
+    @staticmethod
+    def _materialize_live(live):
+        """One copy to the host for the live handles' queued wires (no
+        kernel fallback: a failure raises)."""
+        cat = torch.cat([h[1] for h in live], dim=0)
+        return cat.cpu().numpy().astype(np.uint16)
+
+    def collect_async(self, handles):
+        """Materialize a batch of dispatch_async handles (one combined
+        device->host copy) and decode to llocs rows per handle."""
+        live = [h for h in handles if h[0] != "rows" and h[1] is not None]
+        if live:
+            cat = _unpack_wire_rows(self._materialize_live(live))
+            splits = np.cumsum([h[1].shape[0] for h in live])[:-1]
+            parts = iter(np.split(cat, splits, axis=0))
+        results = []
+        for handle in handles:
+            if handle[0] == "rows":
+                results.append(handle[1])
+                continue
+            inks, _, (t_max, packed_meta, ws) = handle
+            packed = self._escalate_if_clipped(inks, next(parts), t_max,
+                                               packed_meta)
+            self._update_fpp_hint(packed, ws, len(inks))
+            results.append(self._decode_packed(inks, packed))
+        return results
+
+    def collect_async_bg(self, handles):
+        """Start :meth:`collect_async` on a background thread, on the
+        caller's current CUDA stream, and return a zero-arg join callable
+        yielding its rows: the first folios' results come back while the
+        host still rasters the rest."""
+        import threading
+
+        out: dict = {}
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def _run():
+            try:
+                if stream is None:
+                    out["rows"] = self.collect_async(handles)
+                else:
+                    with torch.cuda.stream(stream):
+                        out["rows"] = self.collect_async(handles)
+            except BaseException as e:  # re-raised at join
+                out["err"] = e
+
+        th = threading.Thread(target=_run, daemon=True)
+        th.start()
+
+        def _join():
+            th.join()
+            if "err" in out:
+                raise out["err"]
+            return out["rows"]
+
+        return _join
 
     @staticmethod
     def _plan_pack(shapes):

@@ -1,0 +1,368 @@
+"""Batched multi-folio pipeline: ``process_batch``.
+
+Counterpart of ``text_alignment_tpu/parallel/batch.py``. Stage-major
+scheduling instead of folio-major: every page rasters first, each
+folio's OCR is queued on the device as soon as its strips exist (the
+device recognizes folio i while the host rasters folio i+1), then all
+alignments run as bucketed batched NW fills (:func:`..align.nw_torch.
+align_pairs`, one launch per size bucket), then host assembly. Output is
+byte-identical to the JAX package's ``process_batch`` and to the port's
+sequential ``process()``.
+
+The raster stage runs in one of two modes:
+
+- default: the port's ``raster_stream`` (the native host raster, with the
+  skew search on the device through ``ops.skew_device.GroupedSkewWorker``
+  when the device is a card);
+- ``TEXT_ALIGNMENT_TPU_RASTER=device``: :func:`..pipeline.device_raster.
+  raster_stream_device`, the raster on the device around the ``cc_clean``
+  and ``cc_table`` kernels, with the OCR stage cutting the strips from the
+  device page (``DevicePageStrips``).
+
+Not ported: the mesh (the JAX package's data-parallel shard of the batch).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..align import perform_alignment
+from ..align.api import resolve_device
+from ..align.nw_torch import align_pairs
+from ..align.scoring import resolve_scoring
+from ..lang.syllabify import syllabify_text
+from ..models.lstm import pin_float32
+from ..pipeline.assemble import (
+    llocs_to_charboxes,
+    expand_abbreviations,
+    group_syllables,
+    rotate_bboxes,
+)
+from ..pipeline.preprocess import (
+    preprocess_images,
+    raster_stream,
+    identify_text_lines,
+)
+from ..pipeline.process import to_JSON_dict
+from ..utils.timing import StageTimer
+
+
+def _page_feed_enabled() -> bool:
+    """Packed-page OCR feed (TEXT_ALIGNMENT_TPU_OCR_FEED=page|strips): the
+    host raster uploads the bit-packed rotated page once per folio and the
+    strips are cut on the device, instead of packing and uploading the
+    strip crops. Default "strips", as in the JAX package."""
+    return os.environ.get("TEXT_ALIGNMENT_TPU_OCR_FEED", "strips") == "page"
+
+
+@dataclass
+class FolioResult:
+    syl_boxes: list
+    peaks: list
+    json_dict: dict
+    # the folio's full OCR CharBox stream post-abbreviation-expansion —
+    # the same value process() returns as all_chars (alignToOCR.py's
+    # pickle side-channel), so batched callers can refresh --pickle-dir
+    all_chars: list | None = None
+
+
+class PipelinedOCRWorker:
+    """Background OCR worker for the stage-major pipeline: queues each
+    folio's OCR on the device as the raster loop hands it over, and runs
+    the combined collects off the critical path. Once half the folios are
+    dispatched, their combined copy back starts on a second thread and
+    overlaps the raster of the remaining folios.
+
+    The worker's threads issue their device work on the stream that was
+    current on the constructing thread, so it is ordered after the raster
+    programs that produced a device-resident page (one stream, in issue
+    order).
+
+    Protocol: construct with the folio count, call :meth:`put` once per
+    folio (in order), then :meth:`rows` to join. On a raster failure call
+    :meth:`abandon` (idempotent; also safe after full enqueue) so the
+    worker — which loops exactly ``n`` times on the queue — terminates
+    instead of leaking a blocked thread."""
+
+    def __init__(self, recognizer, n: int):
+        import queue
+        import threading
+
+        self._rec = recognizer
+        self._n = n
+        self._enqueued = 0
+        self._cancelled = False
+        self._q: queue.Queue = queue.Queue()
+        self._out: dict = {}
+        self._split = n // 2 if n >= 6 else None
+        dev = recognizer.device
+        self._stream = (torch.cuda.current_stream(dev)
+                        if dev.type == "cuda" else None)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            if self._stream is None:
+                self._work()
+            else:
+                with torch.cuda.stream(self._stream):
+                    self._work()
+        except BaseException as e:  # re-raised at rows()
+            self._out["err"] = e
+
+    def _work(self):
+        handles = []
+        first_join = None
+        for _ in range(self._n):
+            item = self._q.get()
+            if self._cancelled:
+                break
+            handles.append(self._rec.dispatch_async(item))
+            if self._split is not None and len(handles) == self._split:
+                first_join = self._rec.collect_async_bg(
+                    handles[: self._split])
+        if self._cancelled:
+            self._out["err"] = RuntimeError(
+                "OCR worker abandoned: the batch's raster failed")
+            return
+        if first_join is not None:
+            self._out["rows"] = first_join() + self._rec.collect_async(
+                handles[self._split:])
+        else:
+            self._out["rows"] = self._rec.collect_async(handles)
+
+    def put(self, strips) -> None:
+        self._q.put(strips)
+        self._enqueued += 1
+
+    def abandon(self) -> None:
+        """Cancel a partially-enqueued batch: feed sentinels so the
+        worker's fixed-count loop terminates, and flag it to skip the
+        not-yet-dispatched folios and the result copies. No-op after full
+        enqueue."""
+        if self._enqueued >= self._n:
+            return
+        self._cancelled = True
+        while self._enqueued < self._n:
+            self.put([])
+
+    def rows(self) -> list:
+        self._thread.join()
+        if "err" in self._out:
+            raise self._out["err"]
+        return self._out["rows"]
+
+
+def process_batch(folios, recognizer, seq_align_params=None,
+                  backend: str = "hybrid", preproc_params=None,
+                  timer: StageTimer | None = None,
+                  existing_ocr: list | None = None,
+                  existing_pre: list | None = None,
+                  mesh=None,
+                  min_align_device_cells: int | None = None,
+                  raster_workers: int | None = None,
+                  strict: bool = True,
+                  device=None) -> list[FolioResult | None]:
+    """folios: list of (raw_image, transcript). Returns FolioResult per
+    folio (None where OCR produced nothing alignable).
+
+    ``recognizer``: a :class:`..models.recognizer.SeqRecognizer` (its own
+    device runs the OCR). ``device``: the torch device of the raster's
+    device stages and of the NW fill (None: the card; it raises when there
+    is none). ``backend``: "hybrid" (native host raster, NW on the device
+    above ``min_align_device_cells``) or "host" (numpy raster, host NW);
+    the JAX package's all-XLA "device" raster is not ported and raises.
+    ``existing_ocr`` optionally injects per-folio CharBox streams,
+    skipping the recognizer. ``existing_pre`` injects per-folio (image,
+    angle, strips, peaks) tuples, skipping the raster stage.
+    ``min_align_device_cells`` forwards to ``align_pairs`` (0 sends every
+    pair to the device). ``raster_workers`` rasters the folios on a
+    thread pool (the native engine's calls release the GIL). ``mesh`` is
+    not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the data-parallel batch is not ported (ROADMAP queue A, "
+            "item 12)")
+    if backend not in ("host", "hybrid"):
+        raise NotImplementedError(
+            f"backend={backend!r}: the all-XLA raster is not ported; use "
+            "'hybrid' or 'host' (TEXT_ALIGNMENT_TPU_RASTER=device runs the "
+            "raster on the device)")
+    pin_float32()
+    device = resolve_device(device)
+    timer = timer or StageTimer(enabled=False)
+    n = len(folios)
+    if not strict:
+        # quirk-fix mode: area-based saturated-CC filter (process() strict
+        # docstring); the NW boundary fix rides the Scoring below
+        from dataclasses import replace as _dc_replace
+
+        from ..pipeline.preprocess import PreprocParams as _PP
+        from ..pipeline.preprocess import SAT_AREA_THRESH_AREA
+
+        pp = preproc_params or _PP()
+        if pp.sat_area_thresh == _PP.sat_area_thresh:
+            pp = _dc_replace(pp, sat_area_thresh=SAT_AREA_THRESH_AREA)
+        preproc_params = _dc_replace(pp, sat_filter_area=True)
+
+    # stage 1: preprocess + line identification. When the recognizer
+    # normalizes on the device, each folio's OCR is queued as soon as its
+    # strips exist, so the device recognizes folio i while the host
+    # rasters folio i+1.
+    pipelined = (
+        existing_ocr is None
+        and existing_pre is None
+        and recognizer is not None
+        and getattr(recognizer, "normalize_on_device", False)
+    )
+
+    def _raster_one(raw_image):
+        image, eroded, angle = preprocess_images(
+            np.asarray(raw_image), backend=backend, params=preproc_params)
+        strips, peaks, _ = identify_text_lines(
+            image, eroded, backend=backend, params=preproc_params,
+            verbose=False)
+        return image, angle, strips, peaks
+
+    use_device_raster = False
+    use_page_feed = False
+    if pipelined and backend == "hybrid":
+        from ..ops import raster_device as _rd
+
+        use_device_raster = _rd.enabled()
+        use_page_feed = not use_device_raster and _page_feed_enabled()
+
+    from ..models.recognizer import DevicePageStrips
+
+    if existing_pre is not None:
+        pre = list(existing_pre)
+    elif raster_workers:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with timer("preprocess"):
+            with ThreadPoolExecutor(max_workers=raster_workers) as ex:
+                pre = list(ex.map(lambda f: _raster_one(f[0]), folios))
+    else:
+        pre = []
+        ocr_worker = PipelinedOCRWorker(recognizer, n) if pipelined else None
+        with timer("preprocess"):
+            try:
+                if use_device_raster:
+                    from ..pipeline.device_raster import (
+                        DevicePage, raster_stream_device)
+
+                    stream = raster_stream_device(
+                        [np.asarray(f[0]) for f in folios], backend=backend,
+                        params=preproc_params, device=device)
+                else:
+                    stream = raster_stream(
+                        [np.asarray(f[0]) for f in folios], backend=backend,
+                        params=preproc_params, want_packed=use_page_feed,
+                        device=device)
+                for item in stream:
+                    image, angle, strips, peaks = item[:4]
+                    pre.append((image, angle, strips, peaks))
+                    if ocr_worker is None:
+                        continue
+                    if use_device_raster and isinstance(image, DevicePage):
+                        ocr_worker.put(DevicePageStrips(
+                            image.page_packed, [s.bbox for s in strips]))
+                    elif use_page_feed:
+                        ocr_worker.put(DevicePageStrips(
+                            item[4],
+                            [(s.offset_y, s.offset_x, s.img.shape[0],
+                              s.img.shape[1]) for s in strips]))
+                    else:
+                        ocr_worker.put([s.img for s in strips])
+            finally:
+                # a raster failure must not strand the worker (it loops
+                # exactly n times on the queue)
+                if ocr_worker is not None:
+                    ocr_worker.abandon()
+
+    # stage 2: OCR — join the pipelined worker, or run one cross-folio
+    # batch
+    if existing_ocr is not None:
+        all_chars_per_folio = [list(x) for x in existing_ocr]
+    elif pipelined:
+        with timer("ocr"):
+            rows_per_folio = ocr_worker.rows()
+        all_chars_per_folio = []
+        for rows, (_, _, strips, _) in zip(rows_per_folio, pre):
+            chars, _ = llocs_to_charboxes(strips, rows)
+            all_chars_per_folio.append(chars)
+    else:
+        flat_strips = []
+        spans = []
+        for _, _, strips, _ in pre:
+            spans.append((len(flat_strips), len(flat_strips) + len(strips)))
+            flat_strips.extend(strips)
+        with timer("ocr"):
+            rows_flat = recognizer.recognize_batch(
+                [s.img for s in flat_strips])
+        all_chars_per_folio = []
+        for (lo, hi), (_, _, strips, _) in zip(spans, pre):
+            chars, _ = llocs_to_charboxes(strips, rows_flat[lo:hi])
+            all_chars_per_folio.append(chars)
+
+    # stage 3: abbreviations (host) + bucketed batched NW
+    with timer("abbreviations"):
+        all_chars_per_folio = [
+            expand_abbreviations(ch) if ch else ch
+            for ch in all_chars_per_folio
+        ]
+
+    sc = resolve_scoring(seq_align_params, strict=strict)
+    pairs = []
+    pair_idx = []
+    for i, ((_, transcript), chars) in enumerate(zip(folios,
+                                                     all_chars_per_folio)):
+        if not chars:
+            continue
+        ocr = "".join(x.char for x in chars)
+        pairs.append((list(transcript), list(ocr)))
+        pair_idx.append(i)
+
+    with timer("align"):
+        if backend == "hybrid":
+            aligned = align_pairs(pairs, sc,
+                                  min_device_cells=min_align_device_cells,
+                                  device=device)
+            # non-integer/custom scoring falls back per pair
+            aligned = [
+                a
+                if a is not None
+                else perform_alignment(t, o, scoring_system=seq_align_params,
+                                       backend="host", strict=strict)
+                for a, (t, o) in zip(aligned, pairs)
+            ]
+        else:
+            aligned = [
+                perform_alignment(t, o, scoring_system=seq_align_params,
+                                  backend="host", strict=strict)
+                for t, o in pairs
+            ]
+
+    # stage 4: host assembly
+    results: list[FolioResult | None] = [None] * n
+    with timer("assemble"):
+        for (i, (tra_align, ocr_align)) in zip(pair_idx, aligned):
+            raw_image, transcript = folios[i]
+            image, angle, strips, peaks = pre[i]
+            chars = all_chars_per_folio[i]
+            syls = syllabify_text(transcript)
+            syl_boxes = group_syllables(
+                syls, "".join(tra_align), "".join(ocr_align), chars)
+            syl_boxes = rotate_bboxes(
+                syl_boxes, -1 * angle, image.shape,
+                np.asarray(raw_image).shape)
+            results[i] = FolioResult(
+                syl_boxes, peaks, to_JSON_dict(syl_boxes, peaks,
+                                               strict=strict),
+                list(chars))
+    return results

@@ -8,9 +8,9 @@ the canonical output, including the reference's 75th-percentile-as-"median"
 line spacing quirk.
 
 Stages:
-- raster and line segmentation: the JAX package's host code (the native
-  C++ engine on ``backend="hybrid"``, the numpy oracle on "host"), reused
-  through :mod:`.._reuse`;
+- raster and line segmentation: the port's copy of the JAX package's host
+  code (:mod:`.preprocess`: the native C++ engine on ``backend="hybrid"``,
+  the numpy oracle on "host");
 - OCR: the port's :class:`..models.recognizer.SeqRecognizer` on ``device``,
   normalizing lines on the device when that device is a CUDA card;
 - NW alignment: the port's ``perform_alignment``. ``backend="hybrid"``
@@ -19,28 +19,35 @@ Stages:
   the pair has at least ``auto_device_min_cells()`` cells, to the host fill
   otherwise (a chant page, or any page on a CPU device); ``"host"`` always
   takes the host fill;
-- assembly: the JAX package's host code.
+- assembly: the port's copy of the JAX package's host code
+  (:mod:`.assemble`).
 
-``backend="device"`` (the device raster) is not ported yet and raises.
+``backend="device"`` (the all-XLA raster) is not ported and raises; the
+port's device raster runs in the batched pipeline
+(:func:`..parallel.batch.process_batch`).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from .. import _reuse
-from .._reuse import (
+from ..align.api import perform_alignment, resolve_device
+from ..lang.syllabify import syllabify_text
+from ..models.lstm import pin_float32
+from ..utils.ref_pickle import load_charboxes
+from ..utils.timing import stage_timer
+from .assemble import (
     expand_abbreviations,
     group_syllables,
-    identify_text_lines,
     llocs_to_charboxes,
-    preprocess_images,
     rotate_bboxes,
-    syllabify_text,
 )
-from ..align.api import perform_alignment, resolve_device
-from ..models.lstm import pin_float32
+from .preprocess import (
+    SAT_AREA_THRESH_AREA,
+    PreprocParams,
+    identify_text_lines,
+    preprocess_images,
+)
 
 MEDIAN_LINE_MULT = 2  # threaded but unused, as in the reference
 
@@ -72,7 +79,7 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     raw_image: (H, W[, C]) uint8/bool numpy array. ``ocropus_model``: a
     ``.pyrnn(.gz)`` path (loaded onto ``device``) or a ready
     ``SeqRecognizer``. ``device``: torch device of the OCR stage and of the
-    device NW fill (None: the card when there is one). ``backend``:
+    device NW fill (None: the card; it raises when there is none). ``backend``:
     "hybrid" (native C++ raster, NW routed "auto") or "host" (numpy
     raster, host NW fill). ``strict=False`` fixes the documented
     reference defects (stage-1 CC area filter, NW boundary extends).
@@ -82,21 +89,21 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     del wkdir_name, parallel, median_line_mult
     if backend not in ("host", "hybrid"):
         raise NotImplementedError(
-            f"backend={backend!r}: the device raster is not ported yet "
-            "(ROADMAP queue A, item 10); use 'hybrid' or 'host'")
+            f"backend={backend!r}: the all-XLA raster is not ported; use "
+            "'hybrid' or 'host' (the device raster runs in process_batch)")
     if stage_cache is not None:
         raise NotImplementedError(
             "stage_cache is not ported yet (ROADMAP queue A, item 6)")
     pin_float32()
     device = resolve_device(device)
     raw_image = np.asarray(raw_image)
-    timer = timer or _reuse.stage_timer(enabled=False)
+    timer = timer or stage_timer(enabled=False)
     if not strict:
         from dataclasses import replace
 
-        pp = preproc_params or _reuse.PreprocParams()
-        if pp.sat_area_thresh == _reuse.PreprocParams.sat_area_thresh:
-            pp = replace(pp, sat_area_thresh=_reuse.SAT_AREA_THRESH_AREA)
+        pp = preproc_params or PreprocParams()
+        if pp.sat_area_thresh == PreprocParams.sat_area_thresh:
+            pp = replace(pp, sat_area_thresh=SAT_AREA_THRESH_AREA)
         preproc_params = replace(pp, sat_filter_area=True)
 
     # -- PRE-PROCESSING --
@@ -121,7 +128,7 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     elif existing_ocr_pickle:
         try:
             with open(existing_ocr_pickle, "rb") as f:
-                all_chars = _reuse.load_charboxes(f)
+                all_chars = load_charboxes(f)
             if verbose:
                 print("using pickled ocr results in {}...".format(
                     existing_ocr_pickle))
