@@ -51,12 +51,33 @@ Phases, each printing one line (any failure exits non-zero):
      the sequential process() on the card; in (b) no host fallback and
      cc_clean and cc_table launched >= 8 times each; one more page with a
      lowered run capacity falls back and keeps its JSON; ms per folio of
-     (a), (b) and the sequential calls, with the stage split.
+     (a), (b) and the sequential calls, with the stage split;
+  14. the full-chain normalizer kernel (lineest_full) against its plain
+     version on the card, bit for bit (center, dsum, dcnt), on the phase-5
+     folio's packed strips and on >= 64 strips of nine 1600 x 1300 pages
+     (seeds 30-38, the JAX package's full-chain gate recipe); kernel ms
+     (CUDA events, median of 5), the default chain's ms on the same inputs
+     (the cuBLAS v-gauss and banded h-gauss products, then the lineest_tail
+     kernel), plain ms and bound;
+  15. the reference's own gate for the full chain, on those >= 64 strips
+     through the recognizer with the phase-3 weights:
+     TEXT_ALIGNMENT_TPU_TAIL=full against the default, decoded counts and
+     classes identical on every strip, >= 95% of wire rows byte-identical;
+  16. serving: 8 job files (the phase-13 folios and the phase-5 model)
+     drained by serve(once=True, do_warmup=True) with
+     TEXT_ALIGNMENT_TPU_TAIL=full, once one job at a time and once with
+     batch=8: no job failed, the one-at-a-time drain called process_job 8
+     times and process_batch never, the batch=8 drain called process_batch
+     once and process_job never (no one-job retry), lineest_full launched
+     >= 8 times in the one-at-a-time drain, all 16 outputs byte-identical
+     to process()'s JSON under the same setting; the warm-up's ms, the
+     drain's ms per job and its split by route.
 Then one JSON line with each kernel's launches (from its own path's run:
-the folio for the OCR kernels, phase 10 for nw_fill and nw_traceback, the
-2400^2 grid for nw_fill_batched, phase 13 (b) for the CC kernels), error,
-times and bound, and last the device JSON line. Weights and pages are made
-from fixed seeds. Needs no network and no JAX.
+the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
+nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
+kernels, phase 16's one-at-a-time drain for lineest_full), error, times and
+bound, and last the device JSON line. Weights and pages are made from fixed
+seeds. Needs no network and no JAX.
 
 bound_ms is the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -89,7 +110,7 @@ from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.codec import Codec
 from text_alignment_tpu_torch.models.lineest_kernel import (
-    tail_cuda, tail_reference)
+    center_full_cuda, center_full_reference, tail_cuda, tail_reference)
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan_cuda, bidir_scan_reference)
 from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
@@ -105,6 +126,7 @@ from text_alignment_tpu_torch.pipeline.preprocess import (
     PreprocParams, _peaks_and_separators, identify_text_lines,
     preprocess_images)
 from text_alignment_tpu_torch.pipeline.process import _resolve_recognizer
+from text_alignment_tpu_torch.serve import serve
 from text_alignment_tpu_torch.synth import (
     corrupt_ocr, make_page, ocr_with_spaces)
 from text_alignment_tpu_torch.utils.timing import stage_timer
@@ -835,10 +857,264 @@ def phase_batch(path, dev):
         check(fell == 1 and batch_json(res) == seq[:1],
               "the overflowing page did not fall back to an identical JSON")
     finally:
-        if env is None:
-            os.environ.pop("TEXT_ALIGNMENT_TPU_RASTER", None)
-        else:
-            os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = env
+        restore_env("TEXT_ALIGNMENT_TPU_RASTER", env)
+    return launches, pages
+
+
+def full_inputs(packed_meta, dev):
+    """The full chain's inputs for a packed strip batch on the card, as
+    normalize_batch_device builds them: the ink mask, the v-gauss bank,
+    the h-gauss taps, (h, w), the smoothing taps; and the float ink image
+    the default route's products take."""
+    grey, hs, ws = _unpack_bits(torch.from_numpy(packed_meta).to(dev))
+    Hp = grey.shape[1]
+    _, _, _, temp_f = tle._front(grey, hs, ws, True)
+    return ((temp_f != 0).to(torch.uint8), tle.vgauss_bank(hs, Hp).contiguous(),
+            tle.hgauss_taps(hs, Hp).contiguous(), hs, ws,
+            tle._smoothing_taps_on(hs, Hp)), temp_f
+
+
+def gate_strips():
+    """>= 64 strips of nine 1600 x 1300 pages, seeds 30-38: the recipe of
+    the JAX package's full-chain gate (tests/test_tpu_hw.py:338-376)."""
+    strips = []
+    for i in range(9):
+        pg = make_page(np.random.default_rng(30 + i), n_lines=8,
+                       words_per_line=3, H=1600, W=1300, speckles=30,
+                       angle=0.4)
+        image, eroded, _ = preprocess_images(pg.image, backend="hybrid")
+        ls, _, _ = identify_text_lines(image, eroded, backend="hybrid",
+                                       verbose=False)
+        strips.extend(np.asarray(s.img) for s in ls)
+    check(len(strips) >= 64, f"only {len(strips)} gate strips")
+    return strips
+
+
+def full_work(temp, w0, k1, hs, ws, k2):
+    """The operations and bytes the full chain needs on these strips. The
+    tail reads sm only inside each strip's (h, w) (rows >= h and columns
+    >= w are masked out, the smoothing reflects inside [0, w)), so per
+    strip: the v-gauss over the nonzero weights of w0[:h, :h] and the
+    h-gauss over the nonzero taps, for h x w outputs each; the tail's means
+    and argmax over h x w and its smoothing over w columns. Bytes: the ink
+    mask and the v-gauss weights inside (h, w), the taps, (h, w), and the
+    outputs."""
+    w0, k1, k2 = w0.cpu(), k1.cpu(), k2.cpu()
+    ops = nbytes = 0
+    for b, (h, w) in enumerate(zip(hs.tolist(), ws.tolist())):
+        ops += (2 * h * w * int((k1[b] != 0).sum())
+                + 2 * w * int((w0[b, :h, :h] != 0).sum())
+                + 4 * h * w + 2 * w * int((k2[b] != 0).sum()))
+        nbytes += h * w + 4 * h * h
+    B, Wp = temp.shape[0], temp.shape[2]
+    nbytes += (4 * k1.numel() + 8 * k2.numel() + 8 * B  # taps, hs and ws
+               + 4 * B * Wp + 8 * B)                    # center, dsum, dcnt
+    return ops, nbytes
+
+
+def phase_full(rec, fi, strips, dev):
+    """Phase 14: lineest_full against its plain version, bit for bit, on
+    the folio's strips and on the gate strips; its time beside the default
+    chain's on the folio's strips."""
+    packed_gate = rec._pack_strips(strips)[0]
+    for name, meta in (("folio", fi["packed_meta"]), ("gate", packed_gate)):
+        args, _ = full_inputs(meta, dev)
+        got = center_full_cuda(*args)
+        ref = center_full_reference(*args)
+        torch.cuda.synchronize()
+        same = [torch.equal(g, r) for g, r in zip(got, ref)]
+        B, Hp, Wp = args[0].shape
+        print(f"lineest_full: {name} strips B={B} Hp={Hp} Wp={Wp} "
+              f"K1={args[2].shape[1]}: center, dsum, dcnt identical to the "
+              f"plain version {same}")
+        check(all(same), f"lineest_full differs from its plain version on "
+              f"the {name} strips")
+
+    args, temp_f = full_inputs(fi["packed_meta"], dev)
+    temp, w0, k1, hs, ws, k2 = args
+    ms = median_ms(lambda: center_full_cuda(*args))
+    chain_ms = median_ms(lambda: tail_cuda(
+        tle._conv_rows_banded(torch.bmm(w0, temp_f), k1).contiguous(), temp,
+        hs, ws, k2))
+    plain_ms = median_ms(lambda: center_full_reference(*args))
+    B, Hp, Wp = temp.shape
+    K1 = k1.shape[1]
+    ops, nbytes = full_work(*args)
+    b = bound(nbytes, ops)
+    print(f"lineest_full: folio B={B} Hp={Hp} Wp={Wp} K1={K1} kernel "
+          f"{ms:.3f} ms, default chain (cuBLAS v-gauss + banded h-gauss + "
+          f"lineest_tail) {chain_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({ops} operations, "
+          f"{nbytes} bytes)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
+def phase_full_gate(params_np, codec, strips, dev):
+    """Phase 15: the reference's gate for the full chain: the recognizer's
+    wire rows with TEXT_ALIGNMENT_TPU_TAIL=full against the default."""
+    rec = SeqRecognizer(tl.params_from_np(params_np), codec,
+                        normalize_on_device=True, device=dev)
+    packed_meta, _, ws, Wp = rec._pack_strips(strips)
+    t_max = rec._initial_t_max(Wp, ws[:len(strips)])
+    rows = {}
+    env = os.environ.get("TEXT_ALIGNMENT_TPU_TAIL")
+    try:
+        for mode in ("default", "full"):
+            if mode == "full":
+                os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
+            else:
+                os.environ.pop("TEXT_ALIGNMENT_TPU_TAIL", None)
+            before = _kernels.launches["lineest_full"]
+            rows[mode] = rec._dispatch_device(packed_meta, t_max, 128)
+            used = _kernels.launches["lineest_full"] - before
+            check(used >= 1 if mode == "full" else used == 0,
+                  f"the {mode} route launched lineest_full {used} times")
+    finally:
+        restore_env("TEXT_ALIGNMENT_TPU_TAIL", env)
+    wa, wb = rows["default"], rows["full"]
+    n = len(strips)
+    R = (wa.shape[1] - 3) // 2
+    same_cls = all(wa[b, 0] == wb[b, 0] and np.array_equal(
+        wa[b, 3 + R:3 + R + wa[b, 0]], wb[b, 3 + R:3 + R + wb[b, 0]])
+        for b in range(n))
+    n_same = sum(bool(np.array_equal(wa[b], wb[b])) for b in range(n))
+    print(f"full-chain gate: {n} strips (B={packed_meta.shape[0]}, Wp={Wp}, "
+          f"t_max={t_max}), decoded chars {int(wa[:n, 0].sum())}; counts "
+          f"and classes identical on every strip {same_cls}; wire rows "
+          f"byte-identical {n_same}/{n}")
+    check(same_cls, "the full chain changes decoded counts or classes")
+    check(n_same >= 0.95 * n, f"only {n_same}/{n} wire rows identical")
+
+
+def restore_env(name, value):
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def phase_serve(pages, path, dev, workdir):
+    """Phase 16: serve(do_warmup=True) drains 8 job files with
+    TEXT_ALIGNMENT_TPU_TAIL=full, one job at a time and with batch=8; the
+    outputs against process()'s JSON under the same setting. The launch
+    counts, the calls of each route and the ms per job cover the drain
+    after the warm-up. Returns
+    the lineest_full launches of the one-at-a-time run."""
+    from PIL import Image
+
+    from text_alignment_tpu_torch import serve as serve_mod
+    from text_alignment_tpu_torch.parallel import batch as batch_mod
+
+    warm = {}
+    # calls and wall ms of the drain's routes: process_job (one job at a
+    # time, and the batched path's retry after a process_batch exception),
+    # process_batch, and _parse_job (the batched path's job and PNG reads)
+    calls = {}
+    real = {"warmup": serve_mod.warmup, "process_job": serve_mod.process_job,
+            "_parse_job": serve_mod._parse_job,
+            "process_batch": batch_mod.process_batch}
+
+    def timed_warmup(*args, **kwargs):
+        t0 = time.perf_counter()
+        real["warmup"](*args, **kwargs)
+        torch.cuda.synchronize()
+        warm["ms"] = (time.perf_counter() - t0) * 1e3
+        _kernels.reset_launches()  # count the drain only
+        calls.clear()
+
+    def counted(name):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                n, ms = calls.get(name, (0, 0.0))
+                calls[name] = (n + 1,
+                               ms + (time.perf_counter() - t0) * 1e3)
+        return wrapper
+
+    env = os.environ.get("TEXT_ALIGNMENT_TPU_TAIL")
+    os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
+    serve_mod.warmup = timed_warmup
+    for name in ("process_job", "_parse_job"):
+        setattr(serve_mod, name, counted(name))
+    batch_mod.process_batch = counted("process_batch")
+    try:
+        want = []
+        for pg in pages:
+            out = run_process(pg, path)
+            check(out is not None, "process() returned None on a job folio")
+            want.append(json.dumps(to_JSON_dict(out[0], out[2])))
+        launches = None
+        for batch in (1, 8):
+            spool = os.path.join(workdir, f"spool{batch}")
+            os.makedirs(spool)
+            for k, pg in enumerate(pages):
+                Image.fromarray(pg.image).save(
+                    os.path.join(spool, f"folio{k}.png"))
+                with open(os.path.join(spool, f"folio{k}.job.json"), "w") as f:
+                    json.dump({"image": f"folio{k}.png",
+                               "transcript": pg.transcript}, f)
+            stats, ms = wall_ms(lambda: serve(
+                spool, path, backend="hybrid", once=True, batch=batch,
+                do_warmup=True, device=dev))
+            run_launches, run_calls = dict(_kernels.launches), dict(calls)
+            got = []
+            for k in range(len(pages)):
+                with open(os.path.join(spool, f"folio{k}.json")) as f:
+                    got.append(f.read())
+            same = sum(g == w for g, w in zip(got, want))
+            drain = ms - warm["ms"]
+            n_calls = {name: n for name, (n, _) in run_calls.items()}
+            split = {name: round(t / len(pages), 1)
+                     for name, (_, t) in run_calls.items()}
+            print(f"serve batch={batch}: {stats.processed} processed, "
+                  f"{stats.failed} failed; warm-up {warm['ms']:.1f} ms, then "
+                  f"{drain / len(pages):.1f} ms per job (wall of serve less its "
+                  f"warm-up: the model load, claims, PNG reads, the "
+                  f"pipeline, JSON and receipts), of which ms per job in "
+                  f"{split}; calls {n_calls}; "
+                  f"outputs identical to process() {same}/{len(pages)}; "
+                  f"launches in the drain {run_launches}")
+            check(stats.failed == 0 and stats.processed == len(pages),
+                  f"serve batch={batch}: {stats.failed} job(s) failed")
+            check(same == len(pages), f"serve batch={batch}: outputs differ "
+                  f"from process()")
+            # the drain took the route asked for: one job at a time, or one
+            # process_batch over the sweep and no one-job retry after it
+            n_job = run_calls.get("process_job", (0, 0.0))[0]
+            n_batch = run_calls.get("process_batch", (0, 0.0))[0]
+            want_calls = (len(pages), 0) if batch == 1 else (0, 1)
+            check((n_job, n_batch) == want_calls,
+                  f"serve batch={batch}: process_job called {n_job} times "
+                  f"and process_batch {n_batch} times, not {want_calls}")
+            check(run_launches["lineest_full"] >= (len(pages) if batch == 1
+                                                   else 1),
+                  f"serve batch={batch} launched lineest_full "
+                  f"{run_launches['lineest_full']} times")
+            if batch == 1:
+                launches = run_launches
+        # the drain's costs outside serve, on the same files: PNG reads,
+        # the model load, and process_batch once more on the same folios
+        t0 = time.perf_counter()
+        images = [np.asarray(Image.open(os.path.join(spool, f"folio{k}.png")))
+                  for k in range(len(pages))]
+        png_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+        rec, load_ms = wall_ms(lambda: _resolve_recognizer(path, "hybrid",
+                                                           dev))
+        folios = [(im, pg.transcript) for im, pg in zip(images, pages)]
+        _, again_ms = wall_ms(lambda: real["process_batch"](
+            folios, rec, backend="hybrid", device=dev))
+        print(f"serve: PNG read {png_ms:.1f} ms per job, model load "
+              f"{load_ms:.1f} ms per serve call; process_batch again on the "
+              f"same {len(pages)} folios {again_ms / len(pages):.1f} ms per "
+              f"folio")
+    finally:
+        for name in ("warmup", "process_job", "_parse_job"):
+            setattr(serve_mod, name, real[name])
+        batch_mod.process_batch = real["process_batch"]
+        restore_env("TEXT_ALIGNMENT_TPU_TAIL", env)
     return launches
 
 
@@ -881,11 +1157,17 @@ def main() -> int:
 
     stats.update(phase_cc(dev, make_batch_folio(3000), page))
     phase_skew(dev, page)
-    batch_launches = phase_batch(path, dev)
-    tmp.cleanup()
+    batch_launches, batch_pages = phase_batch(path, dev)
     # the CC kernels' launches: process_batch with the raster on the card
     launches.update({k: batch_launches[k]
                      for k in ("cc_filter", "cc_clean", "cc_table")})
+
+    strips = gate_strips()
+    stats["lineest_full"] = phase_full(rec, fi, strips, dev)
+    phase_full_gate(params_np, codec, strips, dev)
+    serve_launches = phase_serve(batch_pages, path, dev, tmp.name)
+    launches["lineest_full"] = serve_launches["lineest_full"]
+    tmp.cleanup()
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"
     cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"
@@ -895,6 +1177,9 @@ def main() -> int:
                "lineest_tail": (
                    f"{csrc}/lineest_tail.cu",
                    "text_alignment_tpu/models/lineest_pallas.py:185"),
+               "lineest_full": (
+                   f"{csrc}/lineest_full.cu",
+                   "text_alignment_tpu/models/lineest_pallas.py:336"),
                "nw_fill": (f"{csrc}/nw_fill.cu", f"{pallas}:238"),
                "nw_fill_batched": (f"{csrc}/nw_fill.cu", f"{pallas}:444"),
                "nw_traceback": (f"{csrc}/nw_traceback.cu", f"{pallas}:733"),

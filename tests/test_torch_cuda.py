@@ -18,7 +18,8 @@ from text_alignment_tpu_torch.align import nw_kernel, nw_torch
 from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.lineest_kernel import (
-    tail_cuda, tail_reference)
+    center_full, center_full_cuda, center_full_reference, tail_cuda,
+    tail_reference)
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_reference)
 
@@ -67,6 +68,48 @@ def test_lineest_tail_kernel_matches_plain(cuda, B, Hp, Wp):
     d = (c1 - c0).abs()[valid]
     assert d.max().item() <= 1
     assert (d == 0).float().mean().item() >= 0.99
+
+
+def _full_inputs(dev, B, Hp, Wp, seed):
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(Hp // 2, Hp + 1, B).astype(np.int32)
+    ws = rng.integers(Wp // 8, Wp + 1, B).astype(np.int32)
+    hs[-1] = ws[-1] = 0  # a padding strip of the pack ladder
+    grey = (rng.random((B, Hp, Wp)) > 0.12).astype(np.uint8)
+    hs_t, ws_t = torch.from_numpy(hs).to(dev), torch.from_numpy(ws).to(dev)
+    _, _, _, _, temp, k2 = tle.center_inputs(
+        torch.from_numpy(grey).to(dev), hs_t, ws_t, onebit=True)
+    return (temp, tle.vgauss_bank(hs_t, Hp).contiguous(),
+            tle.hgauss_taps(hs_t, Hp).contiguous(), hs_t, ws_t, k2)
+
+
+@pytest.mark.parametrize("B,Hp,Wp", [(12, 96, 1536), (5, 32, 256),
+                                     (3, 128, 1000)])
+def test_lineest_full_kernel_matches_plain_bit_for_bit(cuda, B, Hp, Wp):
+    args = _full_inputs(cuda, B, Hp, Wp, Hp + Wp)
+    before = _kernels.launches["lineest_full"]
+    got = center_full(*args)
+    assert _kernels.launches["lineest_full"] == before + 1
+    ref = center_full_reference(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_lineest_full_rejects_bad_inputs(cuda):
+    args = list(_full_inputs(cuda, 4, 32, 256, 1))
+    bad = list(args)
+    bad[1] = args[1].double()  # a float64 v-gauss bank
+    with pytest.raises(ValueError):
+        center_full_cuda(*bad)
+    bad = list(args)
+    bad[2] = args[2][:, :-1].contiguous()  # an even tap count
+    with pytest.raises(ValueError):
+        center_full_cuda(*bad)
+    # Hp = 256: the (Hp, Hp) v-gauss bank alone exceeds shared memory
+    big = _full_inputs(cuda, 2, 256, 256, 2)
+    with pytest.raises(ValueError):
+        center_full_cuda(*big)
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -1,10 +1,18 @@
 """The port's own copies of the JAX package's host code against the
 originals, on the same inputs: the raster and line segmentation (host and
-hybrid), syllabification, the host NW fill and traceback, and .pyrnn
-I/O."""
+hybrid), syllabification, the host NW fill and traceback, .pyrnn I/O,
+the stage cache's keys and store, and the MEI merge."""
+
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
+
+from test_aux import _mini_mei
+from text_alignment_tpu import mei as jax_mei
+from text_alignment_tpu.utils import cache as jax_cache
+from text_alignment_tpu_torch import mei
+from text_alignment_tpu_torch.utils import cache
 
 from text_alignment_tpu.align.nw_host import fill_host as jax_fill_host
 from text_alignment_tpu.align.scoring import resolve_scoring as jax_scoring
@@ -76,3 +84,42 @@ def test_pyrnn_round_trip_reads_in_both_packages(tmp_path):
             np.testing.assert_array_equal(got[direction][k], v)
             np.testing.assert_array_equal(ref[direction][k], v)
     np.testing.assert_array_equal(got["W2"], ref["W2"])
+
+
+def test_stage_cache_keys_and_store_match_jax(tmp_path):
+    rng = np.random.default_rng(5)
+    parts = ("ocr", rng.random((7, 9)).astype(np.float32),
+             np.arange(12, dtype=np.int16).reshape(3, 4), b"\x00\x01",
+             repr((1, "a")), None, 3.5)
+    assert cache.content_key(*parts) == jax_cache.content_key(*parts)
+    assert cache.content_key(*parts[:-1]) != cache.content_key(*parts)
+    value = ({"a": np.arange(3)}, [1, 2])
+    ours = cache.StageCache(str(tmp_path / "ours"))
+    theirs = jax_cache.StageCache(str(tmp_path / "theirs"))
+    for store in (ours, theirs):
+        assert store.get("ocr", "k") is None
+        calls = []
+        got = store.cached("ocr", "k", lambda: calls.append(1) or value)
+        again = store.cached("ocr", "k", lambda: calls.append(1) or value)
+        assert calls == [1]
+        np.testing.assert_array_equal(got[0]["a"], again[0]["a"])
+    assert (sorted(p.name for p in (tmp_path / "ours").iterdir())
+            == sorted(p.name for p in (tmp_path / "theirs").iterdir()))
+
+
+@pytest.mark.parametrize("boxes", [
+    [("al", (10, 50), (40, 70)), ("le", (60, 50), (90, 70)),
+     ("lu", (110, 50), (140, 70))],
+    [("al", (10, 50), (140, 70))]])
+def test_mei_merge_matches_jax(boxes):
+    outs = []
+    for module in (mei, jax_mei):
+        np.random.seed(7)  # the new zones' ids come from np.random
+        tree, bboxes, lines = module.add_text_to_mei_file(_mini_mei(), boxes,
+                                                          40)
+        outs.append((ET.tostring(tree.getroot()), bboxes, lines))
+    assert outs[0] == outs[1]
+    raw = '<mei meiversion="4.0.0"></mei>'
+    assert mei.repair_xml(raw) == jax_mei.repair_xml(raw)
+    assert (mei.intersect((0, 0), (10, 10), (5, 5), (15, 15))
+            == jax_mei.intersect((0, 0), (10, 10), (5, 5), (15, 15)))

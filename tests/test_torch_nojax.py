@@ -2,9 +2,12 @@
 interpreter whose import system refuses ``jax`` and ``jaxlib``,
 text_alignment_tpu_torch imports, process() runs a small synthetic page end
 to end on the CPU, from a .pyrnn.gz model and through the device
-normalizer's plain versions, process_batch runs it with the device raster
-(the CC kernels' plain versions), the NW device path's plain versions align
-a pair as the host fill does, and no loaded module's file lies under
+normalizer's plain versions (the full-chain route,
+``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch runs it with the device
+raster (the CC kernels' plain versions), the NW device path's plain
+versions align a pair as the host fill does, serve drains a spool, the
+Rodan task body, verify_reference and the MEI merge run, a stage cache the
+JAX package wrote yields misses, and no loaded module's file lies under
 ``text_alignment_tpu/``."""
 
 import os
@@ -32,6 +35,7 @@ _SCRIPT = textwrap.dedent("""
 
     torch.set_num_threads(1)
     os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = "device"
+    os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
 
     import text_alignment_tpu_torch
     from text_alignment_tpu_torch import cli, evaluate  # noqa: F401
@@ -46,7 +50,16 @@ _SCRIPT = textwrap.dedent("""
     from text_alignment_tpu_torch.pipeline import device_raster
     from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
     from text_alignment_tpu_torch.synth import make_page
+    from text_alignment_tpu_torch.models import lineest as tle
 
+    full_calls = []
+    _center_full = tle.center_full
+
+    def _counted(*args):
+        full_calls.append(1)
+        return _center_full(*args)
+
+    tle.center_full = _counted
     page = make_page(np.random.default_rng(3), n_lines=2, words_per_line=2,
                      H=300, W=400, char_h=30, char_w=18, gap=4, space_w=24,
                      line_spacing=110, speckles=5)
@@ -79,6 +92,71 @@ _SCRIPT = textwrap.dedent("""
     t, o = list(page.transcript), list(page.transcript[::-1])
     assert (perform_alignment(t, o, backend="device", device="cpu")
             == perform_alignment(t, o, backend="host"))
+    assert full_calls
+
+    import pickle
+    import xml.etree.ElementTree as ET
+    from PIL import Image
+    from text_alignment_tpu_torch import mei, rodan_job, verify_reference
+    from text_alignment_tpu_torch.serve import serve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.pyrnn.gz")
+        save_pyrnn(path, d, Codec())
+        for sub in ("spool", "png", "csv", "pik"):
+            os.makedirs(os.path.join(tmp, sub))
+        png = os.path.join(tmp, "png", "einsiedeln_001r_text.png")
+        Image.fromarray(page.image).save(png)
+        pik = os.path.join(tmp, "pik", "einsiedeln_001r_boxes.pickle")
+        with open(pik, "wb") as f:
+            pickle.dump(page.char_boxes, f, -1)
+        spool = os.path.join(tmp, "spool")
+        jobs = {"a": {"existing_ocr_pickle": pik}, "b": {}}
+        for name, extra in jobs.items():
+            with open(os.path.join(spool, name + ".job.json"), "w") as f:
+                json.dump({"image": png, "transcript": page.transcript,
+                           **extra}, f)
+        stats = serve(spool, path, once=True, batch=2, device="cpu")
+        assert (stats.processed + stats.failed) == 2, stats
+        assert os.path.exists(os.path.join(spool, "a.job.done")), stats
+
+        txt = os.path.join(tmp, "t.txt")
+        with open(txt, "w") as f:
+            f.write(page.transcript)
+        rodan_job.run_task(
+            {"Transcript": [{"resource_path": txt}],
+             "Text Layer": [{"resource_path": png}]},
+            {"OCR Model": path},
+            {"JSON": [{"resource_path": os.path.join(tmp, "r.json")}]},
+            device="cpu")
+
+        with open(os.path.join(tmp, "csv", "einsiedeln.csv"), "w") as f:
+            f.write(",".join(["h"] * 15) + "\\n")
+            row = [""] * 15
+            row[2], row[3], row[10], row[14] = ("001r", "1", "1",
+                                                page.transcript)
+            f.write(",".join(row) + "\\n")
+        rep = verify_reference.verify(tmp, backend="hybrid", verbose=False,
+                                      device="cpu")
+        assert rep.n_no_reference == 1 and rep.n_error == 0, rep.to_dict()
+
+        cache = os.environ["JAX_WRITTEN_CACHE"]
+        before = set(os.listdir(cache))
+        process(page.image, page.transcript,
+                ocropus_model=os.environ["JAX_CACHE_MODEL"], backend="host",
+                verbose=False, device="cpu", stage_cache=cache)
+        after = set(os.listdir(cache))
+        assert before < after and len(after) == len(before) + 2
+
+    NSM = "http://www.music-encoding.org/ns/mei"
+    raw = ('<mei xmlns="%s" meiversion="4.0.0"><surface>'
+           '<zone xml:id="z0" ulx="10" uly="10" lrx="40" lry="30"/>'
+           '</surface><layer><syllable xml:id="s0"><neume>'
+           '<nc facs="z0"/></neume></syllable></layer></mei>' % NSM)
+    tree, boxes, _ = mei.add_text_to_mei_file(
+        mei.parse_mei(raw), [("al", (10, 50), (40, 70))], 40)
+    assert boxes == [[10, 10, 40, 30]]
+    assert tree.getroot().find(".//syl").text == "al"
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     root = os.path.dirname(os.path.dirname(
         os.path.abspath(text_alignment_tpu_torch.__file__)))
@@ -91,10 +169,38 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_runs_without_jax():
+def _jax_written_cache(tmp_path):
+    """A stage-cache directory written by the JAX package's process() (a
+    preprocess and an OCR entry; the OCR entry pickles the JAX package's
+    CharBox), for the page the script aligns, and the model it used."""
+    import numpy as np
+
+    from text_alignment_tpu.pipeline import process as jax_process
+    from text_alignment_tpu_torch.models.codec import Codec
+    from text_alignment_tpu_torch.models.lstm import init_params_np
+    from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
+    from text_alignment_tpu_torch.synth import make_page
+
+    page = make_page(np.random.default_rng(3), n_lines=2, words_per_line=2,
+                     H=300, W=400, char_h=30, char_w=18, gap=4, space_w=24,
+                     line_spacing=110, speckles=5)
+    d = init_params_np(np.random.default_rng(0), 48, 16, len(Codec()))
+    d["W2"] *= 20.0
+    model = str(tmp_path / "jax_cache_model.pyrnn.gz")
+    save_pyrnn(model, d, Codec())
+    cache = str(tmp_path / "jax_cache")
+    jax_process(page.image, page.transcript, ocropus_model=model,
+                backend="host", verbose=False, stage_cache=cache)
+    assert len(os.listdir(cache)) == 2
+    return cache, model
+
+
+def test_port_runs_without_jax(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_WRITTEN_CACHE"], env["JAX_CACHE_MODEL"] = _jax_written_cache(
+        tmp_path)
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -5,8 +5,13 @@ the reference's ``syl_boxes`` JSON, like ``text_alignment_tpu``, whose JAX
 package stays beside it as the reference the port is tested against.
 
 Layer map of the slices ported so far (one folio through ``process()``, NW
-alignment and the scoring grid search, the manuscript batch):
+alignment and the scoring grid search, the manuscript batch, serving):
 
+- ``serve`` — the spool-directory server (``serve``, ``warmup``), the entry
+  point of a deployment; ``rodan_job`` — the Rodan task body;
+  ``verify_reference`` — the real-asset parity harness; ``mei`` — the MEI
+  merge; ``cli`` — ``align``, ``serve``, ``evaluate``, ``mei``,
+  ``verify-reference``.
 - ``parallel.batch`` — ``process_batch``: many folios stage-major, the OCR
   queued on the card while the host rasters the next folio, NW batched by
   size bucket; with ``TEXT_ALIGNMENT_TPU_RASTER=device`` the raster runs
@@ -17,7 +22,8 @@ alignment and the scoring grid search, the manuscript batch):
   JAX package's framework-free host code (as are ``lang``, ``charbox``,
   ``textio``, ``synth``, ``models.codec``, ``models.pyrnn``,
   ``models.lineest_host``, ``align.scoring``, ``align.nw_host``,
-  ``align.traceback``, ``utils`` and ``ops.oracle`` / ``fixedpoint`` /
+  ``align.traceback``, ``utils`` (timing, the stage cache, the OCR-pickle
+  loader), ``mei`` and ``ops.oracle`` / ``fixedpoint`` /
   ``projections`` / ``host_native``).
 - ``pipeline.device_raster`` / ``ops.raster_device`` — the raster on a
   device: programs A (cleanup, skew, rotation, erosion, projection), B
@@ -35,7 +41,9 @@ alignment and the scoring grid search, the manuscript batch):
 - ``models.recognizer`` — ``SeqRecognizer``: bit-packed strips -> line
   normalizer -> BiLSTM -> CTC region decode -> uint16 wire, on one device.
 - ``models.lineest`` / ``models.lineest_kernel`` — the batched line
-  normalizer; its center-finding tail is a hand-written CUDA kernel.
+  normalizer; its center-finding tail is a hand-written CUDA kernel, and so
+  is the whole center chain from the ink mask
+  (``TEXT_ALIGNMENT_TPU_TAIL=full``).
 - ``models.lstm`` / ``models.lstm_kernel`` — the BiLSTM; its recurrence is
   a hand-written CUDA kernel.
 - ``models.ctc`` — batched CTC decode.

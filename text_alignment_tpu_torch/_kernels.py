@@ -30,17 +30,18 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("lstm_scan.cu", "lineest_tail.cu", "nw_fill.cu",
-           "nw_traceback.cu", "cc_filter.cu")
+SOURCES = ("lstm_scan.cu", "lineest_tail.cu", "lineest_full.cu",
+           "nw_fill.cu", "nw_traceback.cu", "cc_filter.cu")
+HEADERS = ("lineest_tail.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 
-launches = {"lstm_scan": 0, "lineest_tail": 0, "nw_fill": 0,
-            "nw_fill_batched": 0, "nw_traceback": 0, "cc_filter": 0,
-            "cc_table": 0, "cc_clean": 0}
+launches = {"lstm_scan": 0, "lineest_tail": 0, "lineest_full": 0,
+            "nw_fill": 0, "nw_fill_batched": 0, "nw_traceback": 0,
+            "cc_filter": 0, "cc_table": 0, "cc_clean": 0}
 build_seconds: float | None = None  # wall time of the last nvcc build
 
 _lib = None
@@ -70,7 +71,7 @@ def _source_paths():
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _source_paths():
+    for p in _source_paths() + [os.path.join(CSRC, s) for s in HEADERS]:
         with open(p, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libta_kernels_{h.hexdigest()[:16]}.so")
@@ -131,6 +132,11 @@ def lib():
         L.ta_lineest_tail.restype = i
         L.ta_lineest_tail.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p,
                                       p, i, p]
+        L.ta_lineest_full_smem.restype = ctypes.c_size_t
+        L.ta_lineest_full_smem.argtypes = [i, i, i]
+        L.ta_lineest_full.restype = i
+        L.ta_lineest_full.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p,
+                                      p, p, p, i, p]
         L.ta_nw_fill_smem.restype = ctypes.c_size_t
         L.ta_nw_fill_smem.argtypes = [i, i]
         L.ta_nw_fill.restype = i

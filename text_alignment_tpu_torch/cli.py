@@ -1,16 +1,23 @@
-"""Command-line entry point of the port: the sequential ``align`` workflow.
+"""Command-line entry point of the port.
 
 Usage:
     python -m text_alignment_tpu_torch align --csv chants.csv \\
         --manuscript salzinnes --model model.pyrnn.gz \\
         --png-dir ./png --out-json ./out_json --folios 60 61 --device cuda
+    python -m text_alignment_tpu_torch serve --spool DIR --model M --once
+    python -m text_alignment_tpu_torch evaluate ...
+    python -m text_alignment_tpu_torch mei ...
+    python -m text_alignment_tpu_torch verify-reference --assets DIR
 
-Counterpart of ``text_alignment_tpu/cli.py``'s ``align``: the folio-at-a-
-time loop, and with ``--batch N`` the stage-major batched pipeline
-(``parallel.batch.process_batch``, N folios per call; set
-``TEXT_ALIGNMENT_TPU_RASTER=device`` to run its raster on the card). The
-card is the default device; ``--device cpu`` runs on the CPU. The other
-subcommands and ``--cache-dir`` are not ported yet (ROADMAP queue A).
+Counterpart of ``text_alignment_tpu/cli.py``: ``align`` (the folio-at-a-
+time loop, with ``--cache-dir`` the content-addressed stage cache, and with
+``--batch N`` the stage-major batched pipeline, N folios per call; set
+``TEXT_ALIGNMENT_TPU_RASTER=device`` to run its raster on the card),
+``serve`` (the spool-directory server), ``evaluate`` (IoU evaluation and
+the scoring grid search), ``mei`` and ``verify-reference``. The card is the
+default device of every subcommand; ``--device cpu`` runs on the CPU.
+``TEXT_ALIGNMENT_TPU_TAIL=full`` takes the full-chain normalizer kernel.
+``lines``, ``gtedit`` and ``train`` are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ def cmd_align(args):
 
     timer = stage_timer(enabled=args.timing)
     if args.batch and args.batch > 1:
+        if args.cache_dir:
+            print("note: --cache-dir applies to sequential alignment only; "
+                  "ignoring it under --batch")
         return _align_batched(args, text_func, timer)
     for ind in _folio_ids(args.folios, text_func):
         try:
@@ -80,7 +90,8 @@ def cmd_align(args):
             raw_image, transcript, ocropus_model=args.model,
             existing_ocr_pickle=ocr_pickle if args.reuse_ocr else None,
             backend=args.backend, verbose=args.verbose, timer=timer,
-            strict=args.strict, device=args.device)
+            stage_cache=args.cache_dir, strict=args.strict,
+            device=args.device)
         if result is None:
             continue
         syl_boxes, _, lines_peak_locs, all_chars = result
@@ -184,6 +195,154 @@ def _align_batched(args, text_func, timer):
     return 0
 
 
+def cmd_evaluate(args):
+    from .evaluate import grid_search, parse_gt_xml
+    from .lang import filename_to_text_func
+    from .utils.ref_pickle import load_charboxes
+
+    text_func = filename_to_text_func(args.csv, args.mapping)
+    fixtures = []
+    eval_inds = []
+    for ind in _folio_ids(args.folios, text_func):
+        try:
+            fname, transcript = text_func(ind)
+        except ValueError as e:
+            print(e)
+            print("no chants listed for page {}".format(ind))
+            continue
+        fname = "{}_{}".format(args.manuscript, fname)
+        png_path = os.path.join(args.png_dir, fname + "_text.png")
+        pik_path = os.path.join(args.pickle_dir, fname + "_boxes.pickle")
+        gt_path = os.path.join(args.gt_dir, fname + "_gt.xml")
+        missing = [p for p in (png_path, pik_path, gt_path)
+                   if not os.path.isfile(p)]
+        if missing:
+            print("skipping {}: missing {}".format(
+                fname, ", ".join(missing)))
+            continue
+        with open(pik_path, "rb") as f:
+            existing_ocr = load_charboxes(f)
+        fixtures.append({"raw_image": _load_image(png_path),
+                         "transcript": transcript,
+                         "gt_boxes": parse_gt_xml(gt_path),
+                         "existing_ocr": existing_ocr})
+        eval_inds.append(ind)
+    if not fixtures:
+        print("no evaluable folios (need page image + OCR pickle + GT XML)")
+        return 1
+    if args.grid:
+        logs, ranked = grid_search(fixtures, backend=args.backend,
+                                   device=args.device)
+        print(ranked[-10:])
+        return 0
+
+    # single-scoring evaluation: per-folio mean bbox IoU and ink IoU with
+    # the default (or given) scoring
+    from .evaluate import evaluate_alignment
+    from .pipeline import process, to_JSON_dict
+    from .pipeline.preprocess import preprocess_images
+
+    scoring = json.loads(args.scoring) if args.scoring else None
+    scores = []
+    for fx, ind in zip(fixtures, eval_inds):
+        eval_img, _, _ = preprocess_images(
+            fx["raw_image"], correct_rotation=False, backend=args.backend)
+        result = process(
+            fx["raw_image"], fx["transcript"], seq_align_params=scoring,
+            existing_ocr=fx["existing_ocr"], verbose=False,
+            backend=args.backend, device=args.device)
+        if result is None:
+            print(f"{ind}: no alignable OCR; skipped")
+            continue
+        syl_boxes, _, peaks, _ = result
+        d = to_JSON_dict(syl_boxes, peaks)
+        iou, ink = evaluate_alignment(fx["gt_boxes"], d["syl_boxes"],
+                                      eval_img)
+        scores.append((iou, ink))
+        print(f"{ind}: bbox IoU {iou:.3f}  ink IoU {ink:.3f} "
+              f"({len(d['syl_boxes'])} syllables)")
+    if not scores:
+        print("no folios evaluated (all skipped)")
+        return 1
+    mi = float(np.mean([s[0] for s in scores]))
+    mk = float(np.mean([s[1] for s in scores]))
+    print(f"mean: bbox IoU {mi:.3f}  ink IoU {mk:.3f}")
+    return 0
+
+
+def cmd_mei(args):
+    """Enrich a raw MEI file with aligned syllable text + zones
+    (writeToMEI.py:148-214 workflow as a real CLI)."""
+    from .mei import add_text_to_mei_file, charboxes_to_tuples, parse_mei
+    from .pipeline import process
+    from .textio import read_file
+
+    transcript = read_file(args.transcript)
+    raw_image = _load_image(args.image)
+    with open(args.mei) as f:
+        tree = parse_mei(f.read())
+
+    result = process(
+        raw_image, transcript, ocropus_model=args.model,
+        existing_ocr_pickle=args.ocr_pickle, backend=args.backend,
+        verbose=args.verbose, device=args.device)
+    if result is None:
+        print("alignment produced no syllables; MEI left unmodified")
+        return 1
+    syl_boxes, _, lines_peak_locs, _ = result
+    med_line_spacing = (
+        float(np.quantile(np.diff(lines_peak_locs), 0.75))
+        if len(lines_peak_locs) >= 2 else 0.0)
+
+    tree, all_bboxes, _ = add_text_to_mei_file(
+        tree, charboxes_to_tuples(syl_boxes), med_line_spacing)
+    tree.write(args.out)
+    print("wrote {}".format(args.out))
+
+    if args.overlay:
+        from .pipeline.render import draw_boxes_on_page
+
+        draw_boxes_on_page(raw_image, all_bboxes, args.overlay)
+        print("wrote {}".format(args.overlay))
+    return 0
+
+
+def cmd_serve(args):
+    from .serve import serve
+
+    stats = serve(args.spool, args.model, backend=args.backend,
+                  poll_s=args.poll, once=args.once, max_jobs=args.max_jobs,
+                  verbose=args.verbose, do_warmup=args.warmup,
+                  batch=args.batch, device=args.device)
+    print(f"processed {stats.processed} job(s), {stats.failed} failed")
+    return 0 if stats.failed == 0 else 1
+
+
+def cmd_verify_reference(args):
+    """Real-asset parity harness: run a reference checkout end-to-end and
+    report JSON/GT parity (verify_reference module)."""
+    from .verify_reference import verify
+
+    rep = verify(args.assets, manuscript=args.manuscript,
+                 folios=args.folios, backend=args.backend,
+                 reuse_ocr=not args.no_reuse_ocr, device=args.device)
+    d = rep.to_dict()
+    print("match {match}  mismatch {mismatch}  no-reference "
+          "{no_reference}  error {error}".format(**d["summary"]))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(d, f, indent=2)
+        print("wrote", args.out)
+    return 1 if (d["summary"]["mismatch"] or d["summary"]["error"]) else 0
+
+
+def _device_arg(parser, what):
+    parser.add_argument(
+        "--device", default="cuda",
+        help=f"torch device of {what}: cuda (default; it fails without a "
+             "card) or cpu")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="text_alignment_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -199,10 +358,9 @@ def main(argv=None):
     a.add_argument("--out-imgs", default=None)
     a.add_argument("--folios", nargs="+", required=True)
     a.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
-    a.add_argument("--device", default="cuda",
-                   help="torch device of the OCR, the device raster and the "
-                        "device NW fill: cuda (default; it fails without a "
-                        "card) or cpu")
+    _device_arg(a, "the OCR, the device raster and the device NW fill")
+    a.add_argument("--cache-dir", default=None,
+                   help="content-addressed stage cache directory")
     a.add_argument("--reuse-ocr", action="store_true")
     a.add_argument("--batch", type=int, default=0,
                    help="folios per batched-pipeline call (process_batch); "
@@ -213,6 +371,82 @@ def main(argv=None):
                         "preserving them (see PARITY.md)")
     a.add_argument("--verbose", action="store_true")
     a.set_defaults(func=cmd_align)
+
+    e = sub.add_parser("evaluate", help="IoU evaluation + scoring grid search")
+    e.add_argument("--csv", required=True)
+    e.add_argument("--mapping", default=None)
+    e.add_argument("--manuscript", required=True)
+    e.add_argument("--png-dir", default="./png")
+    e.add_argument("--pickle-dir", default="./pik")
+    e.add_argument("--gt-dir", default="./ground-truth-alignments")
+    e.add_argument("--folios", nargs="+", required=True)
+    e.add_argument("--backend", default="host", choices=["host", "hybrid"])
+    _device_arg(e, "the grid's batched NW fill and process()")
+    e.add_argument("--grid", action="store_true",
+                   help="run the 729-combination scoring grid search "
+                   "instead of a single-scoring evaluation")
+    e.add_argument("--scoring", default=None,
+                   help='JSON scoring list, e.g. "[8,-4,-7,-7,-3,0]" '
+                   "(single-scoring mode only)")
+    e.set_defaults(func=cmd_evaluate)
+
+    vr = sub.add_parser(
+        "verify-reference",
+        help="run a real reference checkout (png/ csv/ pik/ models/ "
+             "out_json/ ground-truth-alignments/) end-to-end and emit a "
+             "parity report vs its out_json + GT XML")
+    vr.add_argument("--assets", required=True,
+                    help="path to the reference checkout")
+    vr.add_argument("--manuscript", default=None,
+                    choices=["salzinnes", "einsiedeln", "stgall390",
+                             "stmaurf"])
+    vr.add_argument("--folios", nargs="+", default=None,
+                    help="restrict to these folio fnames (as in the png "
+                         "filenames)")
+    vr.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    _device_arg(vr, "the OCR and the device NW fill")
+    vr.add_argument("--no-reuse-ocr", action="store_true",
+                    help="ignore pik/ caches and run the recognizer from "
+                         "the .pyrnn.gz model (full-stack parity)")
+    vr.add_argument("--out", default=None, help="write the report JSON")
+    vr.set_defaults(func=cmd_verify_reference)
+
+    m = sub.add_parser(
+        "mei", help="enrich a raw MEI file with aligned syllable text")
+    m.add_argument("--transcript", required=True)
+    m.add_argument("--image", required=True, help="text layer PNG")
+    m.add_argument("--mei", required=True, help="raw MEI input")
+    m.add_argument("--out", required=True, help="enriched MEI output path")
+    m.add_argument("--model", default=None)
+    m.add_argument("--ocr-pickle", default=None)
+    m.add_argument("--overlay", default=None, help="debug overlay PNG path")
+    m.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    _device_arg(m, "the OCR and the device NW fill")
+    m.add_argument("--verbose", action="store_true")
+    m.set_defaults(func=cmd_mei)
+
+    s = sub.add_parser(
+        "serve",
+        help="spool-directory server: process *.job.json jobs with the "
+        "model on the device and the kernels built (the Rodan job-queue "
+        "analog)")
+    s.add_argument("--spool", required=True, help="job spool directory")
+    s.add_argument("--model", help=".pyrnn.gz recognizer checkpoint")
+    s.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    _device_arg(s, "the OCR, the device raster and the device NW fill")
+    s.add_argument("--poll", type=float, default=0.2,
+                   help="idle poll interval, seconds")
+    s.add_argument("--once", action="store_true",
+                   help="drain pending jobs and exit")
+    s.add_argument("--max-jobs", type=int, default=None)
+    s.add_argument("--batch", type=int, default=1,
+                   help="drain up to N pending jobs per sweep through the "
+                   "batched pipeline; 1 = one job at a time")
+    s.add_argument("--warmup", action="store_true",
+                   help="build the kernels and run a synthetic folio "
+                   "before accepting jobs")
+    s.add_argument("--verbose", action="store_true")
+    s.set_defaults(func=cmd_serve)
 
     args = p.parse_args(argv)
     return args.func(args)

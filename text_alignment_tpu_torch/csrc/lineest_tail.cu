@@ -40,8 +40,15 @@
 // k2 (B, K2) f64 with K2 = 2 r2 + 1, scratch (B, Hp, Wp) f32,
 // center (B, Wp) i32, dsum/dcnt (B,) i32. Rows i >= h of scratch are never
 // written or read.
+//
+// The plain version (models/lineest_kernel.py tail_reference) sums every
+// window, mean and prefix in the order these passes do, so the two agree
+// bit for bit on the card. csrc/lineest_full.cu runs the same passes
+// through ta_lineest_tail (lineest_tail.cuh).
 
 #include <cuda_runtime.h>
+
+#include "lineest_tail.cuh"
 
 #define TA_TILE_W 32
 #define TA_TILE_Y 8

@@ -1,0 +1,16 @@
+// The center-finding tail of the batched line normalizer, shared by the two
+// normalizer kernels: csrc/lineest_tail.cu defines it (three passes from the
+// h-gauss output sm to center, dsum and dcnt) and launches it for the default
+// route; csrc/lineest_full.cu computes sm from the ink mask first and then
+// launches the same passes through this entry point.
+//
+// Launches on `stream` and returns cudaGetLastError() (0 on success). See
+// lineest_tail.cu for the layouts and the arithmetic.
+
+#pragma once
+
+extern "C" int ta_lineest_tail(const float* sm, const unsigned char* temp,
+                               const int* hs, const int* ws, const double* k2,
+                               int B, int Hp, int Wp, int K2, float* scratch,
+                               int* center, int* dsum, int* dcnt, int device,
+                               void* stream);

@@ -12,6 +12,11 @@ batch of padded strips at once, whose scipy canon is the JAX package's
 - the center-finding tail (uniform means, argmax, sigma = 0.3 h smoothing,
   MAD) in :mod:`.lineest_kernel`, the CUDA kernel on the card, with the
   smoothing's taps from :func:`smoothing_taps`;
+- with ``TEXT_ALIGNMENT_TPU_TAIL=full`` (read at each call; onebit batches),
+  the whole center chain from the ink mask in one kernel
+  (:func:`.lineest_kernel.center_full`, the JAX package's
+  ``lineest_pallas.center_from_temp`` route) in place of the two products and
+  the tail;
 - dewarp + bilinear zoom + prepare_line as two gathers with scipy zoom's
   (in-1)/(out-1) coordinate map.
 
@@ -30,12 +35,14 @@ tail leaves that edge to its summation order.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .lineest_host import DEFAULT_PAD, DEFAULT_TARGET_HEIGHT
-from .lineest_kernel import tail
+from .lineest_kernel import center_full, tail
 
 _RANGE = 4
 _SMOOTHNESS = 1.0
@@ -110,19 +117,15 @@ def _conv_rows_banded(x, kernels):
     return out.reshape(B, R, Wb)[..., :W]
 
 
-def center_inputs(grey, hs, ws, onebit=False):
-    """Contrast front + v-gauss + h-gauss: everything upstream of the tail.
-
-    Returns (grey, mx, blank, sm, temp, k2): the masked grey page, each
-    strip's max grey and blank flag, the h-gauss output ``sm`` (B, Hp, Wp)
-    f32, the ink mask ``temp`` (B, Hp, Wp) u8 and the tail's sigma = 0.3 h
-    tap bank ``k2`` (B, K2) f64 (:func:`smoothing_taps`)."""
+def _front(grey, hs, ws, onebit):
+    """The contrast front: (grey, mx, blank, temp_f), the masked grey page,
+    each strip's max grey and blank flag, and the normalized ink image
+    (the ink mask itself for ``onebit``)."""
     B, Hp, Wp = grey.shape
     dev = grey.device
-    i_idx = torch.arange(Hp, device=dev)
-    x_idx = torch.arange(Wp, device=dev)
-    valid = ((i_idx[None, :, None] < hs[:, None, None])
-             & (x_idx[None, None, :] < ws[:, None, None]))
+    valid = ((torch.arange(Hp, device=dev)[None, :, None] < hs[:, None, None])
+             & (torch.arange(Wp, device=dev)[None, None, :]
+                < ws[:, None, None]))
     if onebit:
         # every valid pixel is exactly 0 (ink) or 1: temp is the ink mask
         g = torch.where(valid, grey.to(torch.uint8), 1)
@@ -132,18 +135,22 @@ def center_inputs(grey, hs, ws, onebit=False):
         blank = ~(any_ink & any_bg)
         mx = any_bg.float()
         temp_f = (ink & any_bg[:, None, None]).float()
-        grey = g
-    else:
-        grey = torch.where(valid, grey.float(), 1.0)
-        mx = torch.where(valid, grey, _NEG).amax(dim=(1, 2))
-        temp_f = torch.where(valid, mx[:, None, None] - grey, 0.0)
-        tmax = temp_f.amax(dim=(1, 2))
-        blank = tmax <= 0.0
-        temp_f = temp_f / torch.where(blank, 1.0, tmax)[:, None, None]
+        return g, mx, blank, temp_f
+    grey = torch.where(valid, grey.float(), 1.0)
+    mx = torch.where(valid, grey, _NEG).amax(dim=(1, 2))
+    temp_f = torch.where(valid, mx[:, None, None] - grey, 0.0)
+    tmax = temp_f.amax(dim=(1, 2))
+    blank = tmax <= 0.0
+    temp_f = temp_f / torch.where(blank, 1.0, tmax)[:, None, None]
+    return grey, mx, blank, temp_f
 
+
+def vgauss_bank(hs, Hp: int):
+    """(B, Hp, Hp) axis-0 gaussian (sigma = 0.5 h) kernel matrices,
+    normalized over the FULL kernel sum as scipy does."""
+    dev = hs.device
     hf = hs.float()
-    # axis-0 gaussian, sigma = 0.5 h: per-strip (Hp, Hp) kernel matrix,
-    # normalized over the FULL kernel sum as scipy does
+    i_idx = torch.arange(Hp, device=dev)
     k0max = 2 * int(_TRUNCATE * Hp * 0.5 + 0.5) + 1
     sig0 = (0.5 * hf).clamp(min=1e-6)
     rad0 = torch.floor(_TRUNCATE * 0.5 * hf + 0.5).int()
@@ -154,16 +161,34 @@ def center_inputs(grey, hs, ws, onebit=False):
                           device=dev)[None, :]
     wfull = torch.exp(-0.5 * (t_full / sig0[:, None]) ** 2)
     wfull = torch.where(t_full.abs() <= rad0.float()[:, None], wfull, 0.0)
-    w0 = w0 / wfull.sum(dim=1)[:, None, None]
-    sm = torch.bmm(w0, temp_f)
+    return w0 / wfull.sum(dim=1)[:, None, None]
 
-    # axis-1 gaussian, sigma = smoothness * h
+
+def hgauss_taps(hs, Hp: int):
+    """(B, K1) axis-1 gaussian (sigma = smoothness * h) taps, K1 =
+    2 int(4 Hp + 0.5) + 1."""
     k1max = 2 * int(_TRUNCATE * Hp * _SMOOTHNESS + 0.5) + 1
-    sm = _conv_rows_banded(sm, _gauss_kernel_bank(_SMOOTHNESS * hf, k1max))
+    return _gauss_kernel_bank(_SMOOTHNESS * hs.float(), k1max)
 
-    k2 = torch.from_numpy(smoothing_taps(hs.cpu().numpy(), Hp)).to(dev)
+
+def _smoothing_taps_on(hs, Hp: int):
+    return torch.from_numpy(smoothing_taps(hs.cpu().numpy(), Hp)).to(
+        hs.device)
+
+
+def center_inputs(grey, hs, ws, onebit=False):
+    """Contrast front + v-gauss + h-gauss: everything upstream of the tail.
+
+    Returns (grey, mx, blank, sm, temp, k2): the masked grey page, each
+    strip's max grey and blank flag, the h-gauss output ``sm`` (B, Hp, Wp)
+    f32, the ink mask ``temp`` (B, Hp, Wp) u8 and the tail's sigma = 0.3 h
+    tap bank ``k2`` (B, K2) f64 (:func:`smoothing_taps`)."""
+    Hp = grey.shape[1]
+    grey, mx, blank, temp_f = _front(grey, hs, ws, onebit)
+    sm = torch.bmm(vgauss_bank(hs, Hp), temp_f)
+    sm = _conv_rows_banded(sm, hgauss_taps(hs, Hp))
     temp = (temp_f != 0).to(torch.uint8)
-    return grey, mx, blank, sm.contiguous(), temp, k2
+    return grey, mx, blank, sm.contiguous(), temp, _smoothing_taps_on(hs, Hp)
 
 
 def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, target_height, pad,
@@ -225,6 +250,15 @@ def _dewarp_zoom(grey, mx, center, r, hs, ws, blank, target_height, pad,
     return frames, lengths.int(), t_raw.int()
 
 
+def center_route(onebit: bool = True) -> str:
+    """The center chain :func:`normalize_batch_device` takes: ``"full"``
+    (the full-chain kernel) for ``onebit`` batches when
+    ``TEXT_ALIGNMENT_TPU_TAIL=full``, read at each call, else ``"default"``
+    (the two products and the tail)."""
+    return ("full" if onebit and os.environ.get("TEXT_ALIGNMENT_TPU_TAIL")
+            == "full" else "default")
+
+
 def normalize_batch_device(grey, hs, ws, target_height=DEFAULT_TARGET_HEIGHT,
                            pad=DEFAULT_PAD, t_max=4096, onebit=False):
     """Batched CenterNormalizer.measure + normalize + prepare_line.
@@ -233,12 +267,25 @@ def normalize_batch_device(grey, hs, ws, target_height=DEFAULT_TARGET_HEIGHT,
     ink-dark (1 = background), garbage outside each strip's (hs[b], ws[b])
     region (masked here). Returns (frames (B, t_max, target_height) f32,
     lengths (B,) i32, t_raws (B,) i32); lengths = t_raw + 2 * pad, 0 for
-    blank strips."""
+    blank strips.
+
+    :func:`center_route` picks the chain: ``TEXT_ALIGNMENT_TPU_TAIL=full``
+    (the JAX package's switch) takes the full-chain kernel for ``onebit``
+    batches; any other value the default route. The two agree but at the
+    float32 knife edges of the h-gauss sums, which they take in different
+    orders."""
     Hp = grey.shape[1]
     hs = hs.to(torch.int32).contiguous()
     ws = ws.to(torch.int32).contiguous()
-    grey, mx, blank, sm, temp, k2 = center_inputs(grey, hs, ws, onebit)
-    center, dsum, dcnt = tail(sm, temp, hs, ws, k2)
+    if center_route(onebit) == "full":
+        grey, mx, blank, temp_f = _front(grey, hs, ws, onebit)
+        center, dsum, dcnt = center_full(
+            (temp_f != 0).to(torch.uint8), vgauss_bank(hs, Hp).contiguous(),
+            hgauss_taps(hs, Hp).contiguous(), hs, ws,
+            _smoothing_taps_on(hs, Hp))
+    else:
+        grey, mx, blank, sm, temp, k2 = center_inputs(grey, hs, ws, onebit)
+        center, dsum, dcnt = tail(sm, temp, hs, ws, k2)
     # float64, as scipy's np.mean and int(1 + range * mad)
     mad = dsum.double() / dcnt.clamp(min=1).double()
     mad = torch.where(dcnt > 0, mad, hs.double() / 4.0)

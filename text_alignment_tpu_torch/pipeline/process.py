@@ -22,6 +22,11 @@ Stages:
 - assembly: the port's copy of the JAX package's host code
   (:mod:`.assemble`).
 
+``stage_cache`` memoizes the preprocess and OCR stages under content keys
+(:mod:`..utils.cache`), as the JAX package does, in a namespace of the
+port's own: an entry the JAX package wrote into the same directory is a
+miss here and is never unpickled.
+
 ``backend="device"`` (the all-XLA raster) is not ported and raises; the
 port's device raster runs in the batched pipeline
 (:func:`..parallel.batch.process_batch`).
@@ -29,11 +34,15 @@ port's device raster runs in the batched pipeline
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..align.api import perform_alignment, resolve_device
 from ..lang.syllabify import syllabify_text
+from ..models.lineest import center_route
 from ..models.lstm import pin_float32
+from ..utils.cache import StageCache, content_key
 from ..utils.ref_pickle import load_charboxes
 from ..utils.timing import stage_timer
 from .assemble import (
@@ -51,6 +60,22 @@ from .preprocess import (
 
 MEDIAN_LINE_MULT = 2  # threaded but unused, as in the reference
 
+# the stage-cache namespace: every key of the port's entries hashes it, so
+# the port and the JAX package can share a cache directory without either
+# reading (unpickling) the other's entries
+CACHE_NAMESPACE = "text_alignment_tpu_torch"
+
+
+def _normalizes_on_device(ocropus_model, backend, device) -> bool:
+    """Whether the OCR stage normalizes lines on the device. A model path
+    loaded here does so on a card with ``backend="hybrid"``: the whole OCR
+    stage is then one device program per batch, while host/parity runs and
+    CPU devices keep the scipy normalizer, as the reference does on a
+    CPU-only runtime. A ready recognizer keeps its own setting."""
+    if isinstance(ocropus_model, str):
+        return backend == "hybrid" and device.type == "cuda"
+    return bool(getattr(ocropus_model, "normalize_on_device", False))
+
 
 def _resolve_recognizer(ocropus_model, backend, device):
     if ocropus_model is None:
@@ -59,13 +84,44 @@ def _resolve_recognizer(ocropus_model, backend, device):
         from ..models.recognizer import SeqRecognizer
 
         rec = SeqRecognizer.from_pyrnn(ocropus_model, device=device)
-        # on a card the whole OCR stage is one device program per batch;
-        # host/parity runs and CPU devices keep the scipy normalizer, as the
-        # reference does on a CPU-only runtime
-        rec.normalize_on_device = (backend == "hybrid"
-                                   and rec.device.type == "cuda")
+        rec.normalize_on_device = _normalizes_on_device(ocropus_model,
+                                                        backend, rec.device)
         return rec
     return ocropus_model  # already a SeqRecognizer
+
+
+def _model_cache_id(ocropus_model) -> str:
+    """Cache identity of the OCR model: path + mtime + size for files, a
+    hash of the weights and the decoding setup for a ready recognizer."""
+    if isinstance(ocropus_model, str):
+        try:
+            st = os.stat(ocropus_model)
+            return f"{ocropus_model}:{st.st_mtime_ns}:{st.st_size}"
+        except OSError:
+            return ocropus_model
+    params = getattr(ocropus_model, "params", None)
+    if params is not None:
+        leaves = [t.detach().cpu().numpy()
+                  for t in (*params.fwd, *params.bwd, params.W2)]
+        charset = getattr(getattr(ocropus_model, "codec", None),
+                          "charset", ())
+        cfg = (tuple(charset),
+               getattr(ocropus_model, "target_height", None),
+               getattr(ocropus_model, "pad", None),
+               getattr(ocropus_model, "normalize_on_device", None),
+               getattr(ocropus_model, "decode", "region"))
+        return content_key("model", repr(cfg), *leaves)
+    return repr(type(ocropus_model))
+
+
+def _normalizer_id(ocropus_model, backend, device) -> str:
+    """The line normalizer the OCR stage takes, which decides the centers
+    at the float32 knife edges: scipy's on the host, or the device chain's
+    route (:func:`..models.lineest.center_route`; the pipeline's strips
+    are onebit)."""
+    if not _normalizes_on_device(ocropus_model, backend, device):
+        return "host"
+    return center_route(onebit=True)
 
 
 def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
@@ -84,20 +140,22 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     raster, host NW fill). ``strict=False`` fixes the documented
     reference defects (stage-1 CC area filter, NW boundary extends).
     ``median_line_mult``, ``wkdir_name`` and ``parallel`` are accepted and
-    inert, as in the reference. ``stage_cache`` is not ported yet.
+    inert, as in the reference. ``stage_cache``: a
+    :class:`..utils.cache.StageCache` (or a directory path) that memoizes
+    the preprocess and OCR stages under content-derived keys; the OCR key
+    names the model, the backend, the normalizer route and the device type.
     """
     del wkdir_name, parallel, median_line_mult
     if backend not in ("host", "hybrid"):
         raise NotImplementedError(
             f"backend={backend!r}: the all-XLA raster is not ported; use "
             "'hybrid' or 'host' (the device raster runs in process_batch)")
-    if stage_cache is not None:
-        raise NotImplementedError(
-            "stage_cache is not ported yet (ROADMAP queue A, item 6)")
     pin_float32()
     device = resolve_device(device)
     raw_image = np.asarray(raw_image)
     timer = timer or stage_timer(enabled=False)
+    if isinstance(stage_cache, str):
+        stage_cache = StageCache(stage_cache)
     if not strict:
         from dataclasses import replace
 
@@ -111,8 +169,18 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         image, eroded, angle = existing_preproc_images
     else:
         with timer("preprocess"):
-            image, eroded, angle = preprocess_images(
-                raw_image, backend=backend, params=preproc_params)
+            def _run_preproc():
+                return preprocess_images(raw_image, backend=backend,
+                                         params=preproc_params)
+
+            if stage_cache is not None:
+                image, eroded, angle = stage_cache.cached(
+                    "preproc",
+                    content_key(CACHE_NAMESPACE, "preproc", raw_image,
+                                repr(preproc_params), backend),
+                    _run_preproc)
+            else:
+                image, eroded, angle = _run_preproc()
     if existing_lines is not None:
         cc_strips, lines_peak_locs = existing_lines
     else:
@@ -146,9 +214,30 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
                 "no OCR source: pass ocropus_model, existing_ocr, or a "
                 "readable existing_ocr_pickle")
         with timer("ocr"):
-            recognizer = _resolve_recognizer(ocropus_model, backend, device)
-            rows = recognizer.recognize_batch([s.img for s in cc_strips])
-            all_chars, _other = llocs_to_charboxes(cc_strips, rows)
+            def _run_ocr():
+                # resolved lazily: a cache hit never pays the model load
+                recognizer = _resolve_recognizer(ocropus_model, backend,
+                                                 device)
+                rows = recognizer.recognize_batch([s.img for s in cc_strips])
+                return llocs_to_charboxes(cc_strips, rows)
+
+            if stage_cache is not None:
+                # the key covers everything that decides the OCR output: the
+                # strips (from image, eroded and the params), the model, and
+                # the normalizer actually taken (scipy, or the device's
+                # default or full chain, which differ at the float32 knife
+                # edges) with the device type
+                all_chars, _other = stage_cache.cached(
+                    "ocr",
+                    content_key(CACHE_NAMESPACE, "ocr", image, eroded,
+                                repr(preproc_params),
+                                _model_cache_id(ocropus_model), backend,
+                                _normalizer_id(ocropus_model, backend,
+                                               device),
+                                device.type),
+                    _run_ocr)
+            else:
+                all_chars, _other = _run_ocr()
 
     if not all_chars:
         if verbose:

@@ -1,3 +1,4 @@
-"""Utilities of the port: stage timing and the reference OCR-pickle loader."""
+"""Utilities of the port: stage timing, the content-addressed stage cache
+and the reference OCR-pickle loader."""
 
 from .timing import stage_timer, StageTimer
