@@ -6,7 +6,12 @@ Phases, each printing one line (any failure exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build the CUDA kernels from text_alignment_tpu_torch/csrc/ with nvcc;
   3. the BiLSTM recurrence kernel against its plain version on the card, on
-     the folio's own frames (B, T = t_max, ni = 48, ns = 100); bar 1e-4;
+     the folio's own frames (B, T = t_max, ni = 48, ns = 100) and on seeded
+     frames of the gate strips' shape (B = 96, T = 512); bar 1e-4; at each,
+     the batch tile bt (one CTA a tile, K = 1), threads per CTA, the
+     compiler's registers and spill bytes, kernel ms and cuDNN's
+     torch.nn.LSTM ms on the same frames; at the gate strips, the ms of
+     the other batch tiles;
   4. the normalizer tail kernel against its plain version on the card, on
      the folio's own h-gauss output; bar: ink counts exact, center within
      one row, >= 99% of valid columns identical;
@@ -111,6 +116,7 @@ from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.codec import Codec
 from text_alignment_tpu_torch.models.lineest_kernel import (
     center_full_cuda, center_full_reference, tail_cuda, tail_reference)
+from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan_cuda, bidir_scan_reference)
 from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
@@ -262,30 +268,89 @@ def folio_inputs(rec, inks, dev):
                 k2=k2, hs=hs_t, ws=ws_t, frames=frames, lengths=lengths)
 
 
-def phase_lstm(rec, fi):
-    gx, whT, peep = tl.scan_inputs(rec.params, fi["frames"], fi["lengths"])
+def lstm_work(gx, lengths):
+    """Bytes and operations of one recurrence: gx, Wh, the peepholes and h
+    once each; per valid step of a direction and row, the 4ns x ns product
+    and ~16ns elementwise operations."""
+    _, T, B, G = gx.shape
+    ns = G // 4
+    steps = int(lengths.sum().item())  # per direction
+    nbytes = 4 * (gx.numel() + 2 * ns * G + 2 * 3 * ns + 2 * T * B * ns)
+    return nbytes, 2 * steps * (8 * ns * ns + 16 * ns)
+
+
+def lstm_plan_line(B, ns, dev, bt):
+    """The batch tile, the CTAs and what the compiler made of the
+    instantiation: threads, registers, spills, Wh quads in registers and
+    shared bytes. A tile is one CTA: no cluster (K = 1)."""
+    a = lk.kernel_attrs(ns, bt, dev)
+    check(a["threads"] <= a["max_threads"], f"lstm_scan: {a['threads']} "
+          f"threads over the instantiation's {a['max_threads']}")
+    return (f"plan bt={bt} K=1: {2 * -(-B // bt)} CTAs of {a['threads']} "
+            f"threads, {a['regs']} registers a thread, {a['local_bytes']} "
+            f"spill bytes, Wh quads in registers {a['quads_in_registers']} "
+            f"of {lk.quads(ns)}, shared bytes {a['shared_bytes']}")
+
+
+def lstm_case(params, frames, lengths, dev, alt_tiles=()):
+    """The kernel against its plain version and cuDNN on one batch of
+    frames; ms of the other batch tiles given."""
+    gx, whT, peep = tl.scan_inputs(params, frames, lengths)
+    _, T, B, G = gx.shape
+    bt = lk.launch_plan(
+        B, NS, torch.cuda.get_device_properties(dev).multi_processor_count)
     got = bidir_scan_cuda(gx, whT, peep)
     ref = bidir_scan_reference(gx, whT, peep)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max().item())
     ms = cuda_ms(lambda: bidir_scan_cuda(gx, whT, peep), 20)
-    plain_ms = cuda_ms(lambda: bidir_scan_reference(gx, whT, peep), 3)
-    _, T, B, G = gx.shape
     # the library yardstick: cuDNN's bidirectional LSTM on the same frames
     # (it also computes the input projection, which gx already holds)
     lstm = torch.nn.LSTM(NI, NS, bidirectional=True,
-                         batch_first=True).to(gx.device)
+                         batch_first=True).to(dev)
     with torch.no_grad():
-        library_ms = median_ms(lambda: lstm(fi["frames"]))
-    steps = int(fi["lengths"].sum().item())  # per direction
-    nbytes = 4 * (gx.numel() + whT.numel() + peep.numel() + 2 * T * B * NS)
-    ops = 2 * steps * (8 * NS * NS + 16 * NS)
-    print(f"lstm_scan: B={B} T={T} ns={NS} max_abs_err={err:.3e} "
-          f"(bar {LSTM_BAR}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-          f"torch.nn.LSTM (cuDNN) {library_ms:.3f} ms")
-    check(err <= LSTM_BAR, f"lstm_scan disagrees: {err} > {LSTM_BAR}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, ops), "library_ms": library_ms}
+        library_ms = median_ms(lambda: lstm(frames))
+    for other in alt_tiles:
+        alt = cuda_ms(lambda: bidir_scan_cuda(gx, whT, peep, bt=other), 10)
+        print(f"lstm_scan: B={B} T={T} other tile "
+              f"{lstm_plan_line(B, NS, dev, other)}: {alt:.3f} ms")
+    nbytes, ops = lstm_work(gx, lengths)
+    b = bound(nbytes, ops)
+    print(f"lstm_scan: B={B} T={T} ns={NS} {lstm_plan_line(B, NS, dev, bt)}"
+          f"; max_abs_err={err:.3e} (bar {LSTM_BAR}) kernel {ms:.3f} ms "
+          f"({ms * 1e3 / T:.3f} us a step) torch.nn.LSTM (cuDNN) "
+          f"{library_ms:.3f} ms, bound {b['bound_ms']:.5f} ms by "
+          f"{b['bound_by']}")
+    check(err <= LSTM_BAR, f"lstm_scan disagrees at B={B} T={T}: {err} > "
+          f"{LSTM_BAR}")
+    return dict(gx=gx, whT=whT, peep=peep, err=err, ms=ms,
+                library_ms=library_ms, bound=b)
+
+
+def phase_lstm(rec, fi, dev):
+    """Phase 3: the recurrence at the folio's shapes and at the gate
+    strips' (B = 96, T = 512, seeded frames), each against its plain
+    version and cuDNN, with the batch tile and the compiler's registers;
+    at the folio, the plain version's ms; at the gate strips, the other
+    batch tiles' ms."""
+    folio = lstm_case(rec.params, fi["frames"], fi["lengths"], dev)
+    plain_ms = cuda_ms(lambda: bidir_scan_reference(
+        folio["gx"], folio["whT"], folio["peep"]), 3)
+    rng = np.random.default_rng(96)
+    frames = torch.from_numpy(
+        rng.normal(0, 1, (96, 512, NI)).astype(np.float32)).to(dev)
+    lengths = torch.from_numpy(
+        rng.integers(256, 513, 96).astype(np.int32)).to(dev)
+    lstm_case(rec.params, frames, lengths, dev, alt_tiles=(1, 4, 8))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(f"lstm_scan: plain {plain_ms:.3f} ms at the folio; SM clock now, "
+          f"max: {smi.stdout.strip()}")
+    return {"max_abs_err": folio["err"], "ms": folio["ms"],
+            "plain_ms": plain_ms, **folio["bound"],
+            "library_ms": folio["library_ms"]}
 
 
 def phase_tail(fi):
@@ -1133,7 +1198,8 @@ def main() -> int:
     rec = SeqRecognizer(tl.params_from_np(params_np), codec,
                         normalize_on_device=True, device=dev)
     fi = folio_inputs(rec, inks, dev)
-    stats = {"lstm_scan": phase_lstm(rec, fi), "lineest_tail": phase_tail(fi)}
+    stats = {"lstm_scan": phase_lstm(rec, fi, dev),
+             "lineest_tail": phase_tail(fi)}
 
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "folio.pyrnn.gz")

@@ -191,3 +191,43 @@ def test_wrappers_reject_bad_pages():
         cc.cc_table(pk, 9, 40, 3, 16)
     with pytest.raises(ValueError):  # int64 words
         cc.cc_clean(pk.long(), 8, 40, 3, 5)
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("filter_cuda", (5, 70, 3, 0, False, 64)),
+    ("table_cuda", (5, 70, 3, 16, 64)),
+    ("clean_cuda", (5, 70, 3, 100, False, 64)),
+])
+def test_kernel_wrappers_hold_scratch_through_the_launch(monkeypatch, wrapper,
+                                                         args):
+    """A launch wrapper keeps every tensor whose pointer it passes alive
+    until the C call returns: a block freed before the call could be handed
+    to another thread issuing on the same stream (the batch's OCR worker)
+    and written between the kernel's passes. A fake library checks, at the
+    call, that the scratch it was given still exists."""
+    import weakref
+
+    from text_alignment_tpu_torch import _kernels
+    from text_alignment_tpu_torch.ops import cc_kernel
+
+    made = []
+
+    def scratch(page, H, R):
+        t = torch.zeros(8, dtype=torch.int32)
+        made.append(weakref.ref(t))
+        return t
+
+    def launch(*_):
+        assert made and made[-1]() is not None, "scratch freed before launch"
+        return 0
+
+    class FakeLib:
+        ta_cc_filter = ta_cc_table = ta_cc_clean = staticmethod(launch)
+
+    monkeypatch.setattr(cc_kernel, "_scratch", scratch)
+    monkeypatch.setattr(_kernels, "lib", lambda: FakeLib())
+    monkeypatch.setattr(_kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(_kernels, "launches", dict(_kernels.launches))
+    page = torch.zeros((5, 3), dtype=torch.int32)
+    getattr(cc_kernel, wrapper)(page, *args)
+    assert len(made) == 1

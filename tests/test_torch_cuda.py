@@ -20,8 +20,9 @@ from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.lineest_kernel import (
     center_full, center_full_cuda, center_full_reference, tail_cuda,
     tail_reference)
+from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
-    bidir_scan, bidir_scan_reference)
+    bidir_scan, bidir_scan_cuda, bidir_scan_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,20 +35,51 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,T,ni,ns", [(12, 640, 48, 100), (3, 17, 8, 12),
-                                       (128, 64, 48, 100)])
-def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns):
+@pytest.mark.parametrize("B,T,ni,ns,bt", [
+    (12, 640, 48, 100, None), (3, 17, 8, 12, None), (128, 64, 48, 100, None),
+    (1, 300, 48, 100, None),       # one row, one tile
+    (96, 512, 48, 100, None),      # the gate strips' batch
+    (12, 1, 48, 100, None),        # one step: no prefetch, no WOP term
+    (5, 40, 8, 13, None),          # ns not a multiple of 4: a padded quad
+    (12, 640, 48, 100, 2),         # the folio at the other batch tiles
+    (12, 640, 48, 100, 4),
+    (12, 640, 48, 100, 8),         # a ragged last batch tile
+    (20, 64, 48, 100, 2),
+    (20, 64, 48, 100, 8),          # all 25 Wh quads in shared memory
+    (6, 48, 48, 128, None),        # 512 threads, 12 quads in shared memory
+    (300, 16, 48, 128, None),      # bt = 4 at ns = 128, past one wave
+])
+def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns, bt):
     rng = np.random.default_rng(B + T)
     p = tl.params_from_np(tl.init_params_np(rng, ni, ns, 29, 0.3), cuda)
     xs = torch.from_numpy(rng.normal(0, 1, (B, T, ni)).astype(np.float32))
     lens = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype(np.int32))
     gx, whT, peep = tl.scan_inputs(p, xs.to(cuda), lens.to(cuda))
     before = _kernels.launches["lstm_scan"]
-    got = bidir_scan(gx, whT, peep)
+    got = (bidir_scan(gx, whT, peep) if bt is None
+           else bidir_scan_cuda(gx, whT, peep, bt=bt))
     assert _kernels.launches["lstm_scan"] == before + 1
     ref = bidir_scan_reference(gx, whT, peep)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("ns", [100, 128])
+@pytest.mark.parametrize("B", [8, 12, 16, 32, 64, 96, 128])
+def test_lstm_scan_plan_fits(cuda, B, ns):
+    """For every batch the recognizer plans, the chosen instantiation's
+    CTA fits the card: its grid one wave where a tile allows it, its
+    threads within the instantiation's limit, its registers within a
+    thread's share of one SM sub-partition (16,384 registers for
+    ceil(warps / 4) warps), its shared memory within a block's."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bt = lk.launch_plan(B, ns, sms)
+    a = lk.kernel_attrs(ns, bt, cuda)
+    assert bt == lk.TILES[lk.quads(ns)][-1] or 2 * -(-B // bt) <= sms
+    assert a["threads"] == -(-4 * ns // 32) * 32 <= a["max_threads"]
+    assert a["regs"] * 32 * -(-a["threads"] // 32 // 4) <= 16384
+    assert a["shared_bytes"] <= _kernels.SMEM_LIMIT
+    assert 0 <= a["quads_in_registers"] <= lk.quads(ns)
 
 
 @pytest.mark.parametrize("B,Hp,Wp", [(12, 96, 1536), (5, 64, 512)])
@@ -118,7 +150,7 @@ def test_wrappers_reject_bad_inputs(cuda):
         bidir_scan(gx, torch.zeros((2, 100, 400), device=cuda),
                    torch.zeros((2, 3, 100), device=cuda, dtype=torch.float64))
     big = torch.zeros((2, 4, 2, 4 * 160), device=cuda)
-    with pytest.raises(ValueError):  # Wh of ns=160 exceeds shared memory
+    with pytest.raises(ValueError):  # a Wh column of ns=160 over registers
         bidir_scan(big, torch.zeros((2, 160, 640), device=cuda),
                    torch.zeros((2, 3, 160), device=cuda))
 
@@ -279,6 +311,47 @@ def test_cc_kernels_overflow_like_plain(cuda):
     tab_ref, ok_ref = cc.table_reference(page, 64, 90, -1, 100, 8192)
     assert torch.equal(tab.cpu(), tab_ref)
     assert ok.tolist() == ok_ref.tolist() == [0, 100]
+
+
+def test_cc_table_while_another_thread_allocates(cuda):
+    """cc_table in this thread while a second thread allocates and writes
+    blocks of its scratch's size on the same stream (as the batch's OCR
+    worker does): every table equals the first. A wrapper that freed its
+    scratch before the C call returned got some of them wrong here."""
+    import threading
+
+    from text_alignment_tpu_torch.ops import cc
+    from text_alignment_tpu_torch.synth import make_page
+
+    page = make_page(np.random.default_rng(3000), n_lines=11,
+                     words_per_line=3, H=2000, W=1600, char_h=66, char_w=36,
+                     gap=6, space_w=44, line_spacing=170, speckles=200,
+                     margin_x=60)
+    img = np.asarray(page.image).mean(axis=2) < 128
+    H, W = img.shape
+    dev = torch.from_numpy(cc.pack_page(img)).to(cuda)
+    R = 65536  # the page's ~41k black runs, before the cleanup
+    ref = [t.cpu() for t in cc.cc_table(dev, H, W, 100, 2048, R)]
+    assert ref[1].tolist() == [1, 229]
+    n = _kernels.lib().ta_cc_scratch_ints(H, R)
+    stream = torch.cuda.current_stream(cuda)
+    stop = threading.Event()
+
+    def allocate():
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                torch.empty(n, dtype=torch.int32, device=cuda).fill_(-7)
+
+    th = threading.Thread(target=allocate, daemon=True)
+    th.start()
+    try:
+        wrong = sum(not all(torch.equal(g.cpu(), r) for g, r in zip(
+            cc.cc_table(dev, H, W, 100, 2048, R), ref))
+            for _ in range(300))
+    finally:
+        stop.set()
+        th.join()
+    assert wrong == 0
 
 
 def test_skew_search_on_the_card(cuda):

@@ -13,8 +13,10 @@ import jax.numpy as jnp
 from text_alignment_tpu.models import lstm_jax
 from text_alignment_tpu.models.lstm_pallas import bidir_scan_pallas
 from text_alignment_tpu_torch.models import lstm as tl
+from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
-    bidir_scan, bidir_scan_reference, batch_tile, smem_bytes, SMEM_LIMIT)
+    bidir_scan, bidir_scan_reference)
+from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
 
 torch.set_num_threads(1)
 
@@ -119,13 +121,52 @@ def test_reverse_by_length_matches_jax():
     np.testing.assert_array_equal(got, ref)
 
 
-def test_kernel_launch_plan():
-    """The kernel holds one direction's Wh in shared memory: ns=100 fits
-    one block, ns=128 (the TPU's padded width) does not, and the batch
-    tile keeps the grid within about one block per SM."""
-    assert batch_tile(12) == 1 and batch_tile(128) == 2
-    assert smem_bytes(100, batch_tile(128)) <= SMEM_LIMIT
-    assert smem_bytes(128, 1) > SMEM_LIMIT
+def _planned_batches():
+    """Every batch size the recognizer's pack ladder yields for 1 to 128
+    strips: 8, 12, 16, then multiples of 32."""
+    return sorted({SeqRecognizer._plan_pack([(40, 300)] * n)[0]
+                   for n in range(1, 129)})
+
+
+def test_planned_batches_are_the_ladder():
+    assert _planned_batches() == [8, 12, 16, 32, 64, 96, 128]
+
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("B", [8, 12, 16, 32, 64, 96, 128])
+def test_kernel_launch_plan(B):
+    """At the production width the plan's grid of 2 * ceil(B / bt) CTAs
+    fits one wave on an H100's SMs, with a batch tile the kernel is built
+    for, and no smaller tile would have fit the wave. (Its registers and
+    shared memory are held at compile time by the kernel's static_assert
+    and on the card by test_torch_cuda.py's test_lstm_scan_plan_fits.)"""
+    bt = lk.launch_plan(B, 100, H100_SMS)
+    tiles = lk.TILES[lk.quads(100)]
+    assert bt in tiles
+    assert 2 * -(-B // bt) <= H100_SMS
+    assert all(2 * -(-B // b) > H100_SMS for b in tiles if b < bt)
+
+
+def test_kernel_launch_plan_refuses_what_cannot_fit():
+    """ns over 128 has no instantiation; a batch tile the kernel is not
+    built for (bt = 8 at ns = 128, whose Wh would overflow a block's shared
+    memory) is refused before a launch; a batch past one wave takes the
+    largest tile; the small widths share the ns = 100 instantiation."""
+    with pytest.raises(ValueError):
+        lk.launch_plan(12, 129, H100_SMS)
+    with pytest.raises(ValueError):
+        lk.quads(160)
+    assert lk.quads(12) == lk.quads(100) == 25 and lk.quads(128) == 32
+    assert lk.launch_plan(4096, 100, H100_SMS) == 8
+    assert lk.launch_plan(4096, 128, H100_SMS) == 4
+    assert lk.launch_plan(96, 100, 48) == 4  # a card of fewer SMs
+    for ns, bt in ((100, 3), (100, 16), (4, 0), (128, 8)):
+        gx = torch.zeros((2, 3, 4, 4 * ns), device="meta")
+        with pytest.raises(ValueError):
+            lk.bidir_scan_cuda(gx, torch.zeros((2, ns, 4 * ns), device="meta"),
+                               torch.zeros((2, 3, ns), device="meta"), bt=bt)
 
 
 def test_wrapper_refuses_unknown_devices():

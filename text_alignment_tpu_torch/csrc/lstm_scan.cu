@@ -12,100 +12,192 @@
 //
 // What bounds it: the T steps are a dependent chain, each a tiny
 // (rows x ns) . (ns x 4ns) product plus a dozen elementwise ops, so the
-// kernel is latency-bound, not FLOP- or byte-bound. Design: one block per
-// (direction, tile of `bt` batch rows), one loop over T inside the block
-// with two block barriers per step. The direction's Wh (ns x 4ns f32,
-// 160 KB at ns = 100) sits in dynamic shared memory for the whole scan,
-// so the per-step product reads no device memory except gx[t]; h, c and the
-// gates of the tile sit in shared memory too. Thread g owns gate column g
-// of every row in the tile. No padding of ns to 128 lanes (the TPU layout):
-// padded, Wh would not fit one block's 227 KB.
+// kernel is latency- and issue-bound, not FLOP- or byte-bound: its floor
+// is T times (one dependent ns-term sum + one barrier), and one SM issues
+// a step's 4ns columns x ns unfused multiply-adds, broadcast loads of h
+// and cell updates. The design keeps everything a step needs on chip and
+// puts one barrier on the chain:
+//
+// - One CTA per (direction, tile of BT batch rows). BT is a template
+//   parameter, so the row loops are unrolled without guards.
+// - Thread (unit j, gate q) owns gate column q*ns + j and keeps that column
+//   of Wh on chip for the whole scan (NSP = 4 * NQ floats, ns padded with
+//   zero weights to a multiple of 4; the padding adds exact zeros at the
+//   end of the sum): its first NQR quads in registers, as many as the
+//   register budget below allows, the rest in a float4 slot of its own in
+//   shared memory (conflict-free, [quad][thread]). The four gate columns of
+//   a unit sit in four adjacent lanes of one warp: the cell update gathers
+//   them with __shfl_sync, and c stays in the lanes' registers.
+// - h_{t-1} is read from shared memory as float4 broadcasts (every thread
+//   reads the same address). h is double-buffered by step parity, so one
+//   barrier per step separates the writes of step t from the reads of
+//   step t + 1.
+// - gx for step t + 1 is loaded into registers at the top of step t, so its
+//   load latency overlaps the product and the cell update.
 //
 // Every sum and product is rounded on its own (__fadd_rn / __fmul_rn: no
-// FMA contraction) and h . Wh is summed over s in ascending order, the
-// order of the plain version (models/lstm_kernel.py): the recurrence
-// carries roundoff through every step of a line, so only the same order
-// keeps the two within 1e-4 over thousands of steps.
+// FMA contraction) and h . Wh is summed by one thread over s in ascending
+// order, the order of the plain version (models/lstm_kernel.py): the
+// recurrence carries roundoff through every step of a line, so only the
+// same order keeps the two within 1e-4 over thousands of steps.
 //
 // Layouts (all float32, contiguous):
 //   gx   (2, T, B, 4ns)   input projection + bias, direction 1 length-reversed
 //   whT  (2, ns, 4ns)     recurrent weights, gates[g] = sum_s h[s] whT[s, g]
 //   peep (2, 3, ns)       [WIP, WFP, WOP] per direction
 //   out  (2, T, B, ns)    h per step
+// The instantiations (NQ, BT) are listed at the dispatch below and in
+// models/lstm_kernel.py (TILES), which picks BT; ta_lstm_scan_attrs reports
+// what an instantiation takes (registers, Wh quads in registers, shared
+// bytes).
+//
+// Built with -DTA_LSTM_NO_PRODUCT the step skips h . Wh (wrong values):
+// chip_lstm_ablation.py times that against the kernel.
 
 #include <cuda_runtime.h>
 
-#define TA_LSTM_MAX_BT 8
+constexpr int TA_SMEM_LIMIT = 232448;  // shared bytes one H100 block can use
+
+// The launch bound of an instantiation: 4 lanes for each of 4 * NQ units.
+__host__ __device__ constexpr int ta_lstm_bound(int nq) {
+    return (16 * nq + 31) / 32 * 32;
+}
+
+// The register budget. A CTA's warps are dealt to the SM's four
+// sub-partitions of 16,384 registers each, so a thread of a CTA of W warps
+// may have 16384 / (32 ceil(W / 4)) registers (at most 255). Besides its Wh
+// column a thread is budgeted 12 per batch row and 36 for the rest; the
+// quads of its column that do not fit go to a slot of its own in dynamic
+// shared memory.
+__host__ __device__ constexpr int ta_lstm_nqr(int nq, int bt) {
+    const int per_partition = ((ta_lstm_bound(nq) + 31) / 32 + 3) / 4;
+    const int cap = 16384 / (32 * per_partition) / 8 * 8;
+    const int q = ((cap > 255 ? 255 : cap) - 12 * bt - 36) / 4;
+    return q < 0 ? 0 : (q > nq ? nq : q);
+}
+
+// Dynamic shared bytes: the Wh quads past the registers, a float4 a thread.
+__host__ __device__ constexpr size_t ta_lstm_smem(int nq, int bt,
+                                                  int threads) {
+    return (size_t)(nq - ta_lstm_nqr(nq, bt)) * threads * 16;
+}
 
 __device__ __forceinline__ float ta_sigmoid(float x) {
     return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void ta_lstm_scan_kernel(const float* __restrict__ gx,
-                                    const float* __restrict__ whT,
-                                    const float* __restrict__ peep,
-                                    float* __restrict__ out,
-                                    int T, int B, int ns, int bt) {
-    extern __shared__ float smem[];
-    const int d = blockIdx.y;
-    const int b0 = blockIdx.x * bt;
-    const int nb = min(bt, B - b0);
-    const int G = 4 * ns;
-    float* wh = smem;              // ns * G
-    float* hs = wh + ns * G;       // bt * ns
-    float* cs = hs + bt * ns;      // bt * ns
-    float* gs = cs + bt * ns;      // bt * G
+template <int NQ, int BT>
+__global__ void __launch_bounds__(ta_lstm_bound(NQ), 1)
+    ta_lstm_scan_kernel(const float* __restrict__ gx,
+                        const float* __restrict__ whT,
+                        const float* __restrict__ peep,
+                        float* __restrict__ out, int T, int B, int ns) {
+    constexpr int NSP = 4 * NQ;
+    constexpr int NQR = ta_lstm_nqr(NQ, BT);
+    static_assert(ta_lstm_smem(NQ, BT, ta_lstm_bound(NQ)) +
+                          2 * BT * NSP * sizeof(float) <=
+                      TA_SMEM_LIMIT,
+                  "the instantiation's shared memory is over a block's");
+    __shared__ __align__(16) float hbuf[2][BT][NSP];
+    extern __shared__ float4 wsm[];  // quads NQR.. of the column: [k][tid]
 
-    const float* whd = whT + (size_t)d * ns * G;
-    for (int k = threadIdx.x; k < ns * G; k += blockDim.x) wh[k] = whd[k];
-    for (int k = threadIdx.x; k < bt * ns; k += blockDim.x) {
-        hs[k] = 0.0f;
-        cs[k] = 0.0f;
+    const int d = blockIdx.y;
+    const int b0 = blockIdx.x * BT;
+    const int nb = min(BT, B - b0);
+    const int lane = threadIdx.x & 31;
+    const int q = threadIdx.x & 3;
+    const int j = threadIdx.x >> 2;
+    const bool valid = j < ns;
+    const int G = 4 * ns;
+    const int g = q * ns + j;
+
+    for (int k = threadIdx.x; k < 2 * BT * NSP; k += blockDim.x)
+        (&hbuf[0][0][0])[k] = 0.0f;
+
+    float w[4 * NQR + 1];
+    const float* wd = whT + (size_t)d * ns * G;
+#pragma unroll
+    for (int s = 0; s < 4 * NQR; ++s)
+        w[s] = (valid && s < ns) ? __ldg(wd + (size_t)s * G + g) : 0.0f;
+    for (int k = NQR; k < NQ; ++k) {
+        float v[4];
+        for (int i = 0; i < 4; ++i) {
+            const int s = 4 * k + i;
+            v[i] = (valid && s < ns) ? __ldg(wd + (size_t)s * G + g) : 0.0f;
+        }
+        wsm[(k - NQR) * blockDim.x + threadIdx.x] =
+            make_float4(v[0], v[1], v[2], v[3]);
     }
-    const float* wip = peep + (size_t)d * 3 * ns;
-    const float* wfp = wip + ns;
-    const float* wop = wfp + ns;
+    const float* pd = peep + (size_t)d * 3 * ns;
+    const float wip = valid ? __ldg(pd + j) : 0.0f;
+    const float wfp = valid ? __ldg(pd + ns + j) : 0.0f;
+    const float wop = valid ? __ldg(pd + 2 * ns + j) : 0.0f;
+
+    // gx[d, t, b0 + r, g] and out[d, t, b0 + r, j]
+    const float* gxd = gx + ((size_t)d * T * B + b0) * G + g;
+    float* outd = out + ((size_t)d * T * B + b0) * ns + j;
+    float gcur[BT], c[BT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {
+        gcur[r] = (valid && r < nb) ? __ldg(gxd + (size_t)r * G) : 0.0f;
+        c[r] = 0.0f;
+    }
     __syncthreads();
 
     for (int t = 0; t < T; ++t) {
-        const size_t row0 = ((size_t)d * T + t) * B + b0;
-        const float* gxt = gx + row0 * G;
-        for (int g = threadIdx.x; g < G; g += blockDim.x) {
-            float acc[TA_LSTM_MAX_BT];
+        float gnext[BT];
 #pragma unroll
-            for (int r = 0; r < TA_LSTM_MAX_BT; ++r) acc[r] = 0.0f;
-            for (int s = 0; s < ns; ++s) {
-                const float w = wh[s * G + g];
+        for (int r = 0; r < BT; ++r)
+            gnext[r] = (valid && t + 1 < T && r < nb)
+                           ? __ldg(gxd + ((size_t)(t + 1) * B + r) * G)
+                           : 0.0f;
+
+        const float* hp = &hbuf[(t + 1) & 1][0][0];  // h_{t-1}
+        float acc[BT];
 #pragma unroll
-                for (int r = 0; r < TA_LSTM_MAX_BT; ++r)
-                    if (r < nb)
-                        acc[r] = __fadd_rn(acc[r],
-                                           __fmul_rn(hs[r * ns + s], w));
+        for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+#ifndef TA_LSTM_NO_PRODUCT
+#pragma unroll
+        for (int k = 0; k < NQ; ++k) {
+            const int kr = k < NQR ? 4 * k : 0;  // folds: k is unrolled
+            const float4 wv =
+                k < NQR ? make_float4(w[kr], w[kr + 1], w[kr + 2], w[kr + 3])
+                        : wsm[(k - NQR) * blockDim.x + threadIdx.x];
+#pragma unroll
+            for (int r = 0; r < BT; ++r) {
+                const float4 hv =
+                    *reinterpret_cast<const float4*>(hp + r * NSP + 4 * k);
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(hv.x, wv.x));
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(hv.y, wv.y));
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(hv.z, wv.z));
+                acc[r] = __fadd_rn(acc[r], __fmul_rn(hv.w, wv.w));
             }
-#pragma unroll
-            for (int r = 0; r < TA_LSTM_MAX_BT; ++r)
-                if (r < nb)
-                    gs[r * G + g] = __fadd_rn(gxt[(size_t)r * G + g], acc[r]);
         }
-        __syncthreads();
-        float* outt = out + row0 * ns;
-        for (int k = threadIdx.x; k < nb * ns; k += blockDim.x) {
-            const int r = k / ns;
-            const int s = k - r * ns;
-            const float* g = gs + r * G;
-            const float cp = cs[k];
-            const float gi = ta_sigmoid(__fadd_rn(g[s], __fmul_rn(wip[s], cp)));
-            const float gf =
-                ta_sigmoid(__fadd_rn(g[ns + s], __fmul_rn(wfp[s], cp)));
-            const float ci = tanhf(g[3 * ns + s]);
-            const float c = __fadd_rn(__fmul_rn(ci, gi), __fmul_rn(gf, cp));
-            const float go_in = g[2 * ns + s];
+#endif
+
+        float* hn = &hbuf[t & 1][0][0];  // h_t
+        const int base = lane & ~3;
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+            const float pre = __fadd_rn(gcur[r], acc[r]);
+            const float gi_in = __shfl_sync(0xffffffffu, pre, base);
+            const float gf_in = __shfl_sync(0xffffffffu, pre, base + 1);
+            const float go_in = __shfl_sync(0xffffffffu, pre, base + 2);
+            const float ci_in = __shfl_sync(0xffffffffu, pre, base + 3);
+            const float cp = c[r];
+            const float gi = ta_sigmoid(__fadd_rn(gi_in, __fmul_rn(wip, cp)));
+            const float gf = ta_sigmoid(__fadd_rn(gf_in, __fmul_rn(wfp, cp)));
+            const float ci = tanhf(ci_in);
+            const float cn = __fadd_rn(__fmul_rn(ci, gi), __fmul_rn(gf, cp));
             const float go = ta_sigmoid(
-                t > 0 ? __fadd_rn(go_in, __fmul_rn(wop[s], c)) : go_in);
-            const float h = __fmul_rn(tanhf(c), go);
-            cs[k] = c;
-            hs[k] = h;
-            outt[k] = h;
+                t > 0 ? __fadd_rn(go_in, __fmul_rn(wop, cn)) : go_in);
+            const float h = __fmul_rn(tanhf(cn), go);
+            c[r] = cn;
+            if (valid && q == (r & 3)) {
+                hn[r * NSP + j] = h;
+                if (r < nb) outd[((size_t)t * B + r) * ns] = h;
+            }
+            gcur[r] = gnext[r];
         }
         __syncthreads();
     }
@@ -115,25 +207,91 @@ extern "C" const char* ta_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
+static int ta_lstm_threads(int ns) { return (4 * ns + 31) / 32 * 32; }
+
+template <int NQ, int BT>
+static cudaError_t ta_lstm_launch(const float* gx, const float* whT,
+                                  const float* peep, float* out, int T, int B,
+                                  int ns, cudaStream_t stream) {
+    const int threads = ta_lstm_threads(ns);
+    if (threads > ta_lstm_bound(NQ)) return cudaErrorInvalidConfiguration;
+    const size_t smem = ta_lstm_smem(NQ, BT, threads);
+    auto kernel = ta_lstm_scan_kernel<NQ, BT>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((B + BT - 1) / BT, 2), threads, smem, stream>>>(
+        gx, whT, peep, out, T, B, ns);
+    return cudaSuccess;
+}
+
+// What the compiler made of the instantiation, at ns: registers and local
+// (spill) bytes per thread, threads per block and the most a block of it
+// can launch with, Wh quads held in registers, and shared bytes per block
+// (static and dynamic).
+template <int NQ, int BT>
+static cudaError_t ta_lstm_attrs(int ns, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, ta_lstm_scan_kernel<NQ, BT>);
+    if (e != cudaSuccess) return e;
+    const int threads = ta_lstm_threads(ns);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = threads;
+    out[3] = a.maxThreadsPerBlock;
+    out[4] = ta_lstm_nqr(NQ, BT);
+    out[5] = (int)(a.sharedSizeBytes + ta_lstm_smem(NQ, BT, threads));
+    return cudaSuccess;
+}
+
+// The instantiations: NQ (ns rounded up to a multiple of 4, over 4) in
+// {25, 32}, i.e. ns <= 100 and ns <= 128; BT in {1, 2, 4, 8}, where the
+// shared memory of the Wh quads past the registers fits a block (not
+// (32, 8)).
+#define TA_LSTM_DISPATCH(FN, ...)                                   \
+    switch (nq * 16 + bt) {                                         \
+        case 25 * 16 + 1: return FN<25, 1>(__VA_ARGS__);            \
+        case 25 * 16 + 2: return FN<25, 2>(__VA_ARGS__);            \
+        case 25 * 16 + 4: return FN<25, 4>(__VA_ARGS__);            \
+        case 25 * 16 + 8: return FN<25, 8>(__VA_ARGS__);            \
+        case 32 * 16 + 1: return FN<32, 1>(__VA_ARGS__);            \
+        case 32 * 16 + 2: return FN<32, 2>(__VA_ARGS__);            \
+        case 32 * 16 + 4: return FN<32, 4>(__VA_ARGS__);            \
+        default: return cudaErrorInvalidValue;                      \
+    }
+
+static cudaError_t ta_lstm_dispatch(const float* gx, const float* whT,
+                                    const float* peep, float* out, int T,
+                                    int B, int ns, int nq, int bt,
+                                    cudaStream_t stream) {
+    TA_LSTM_DISPATCH(ta_lstm_launch, gx, whT, peep, out, T, B, ns, stream)
+}
+
+static cudaError_t ta_lstm_attrs_dispatch(int nq, int bt, int ns, int* out) {
+    TA_LSTM_DISPATCH(ta_lstm_attrs, ns, out)
+}
+
+// out[6]: regs, local_bytes, threads, max_threads, nqr, shared_bytes of the
+// (nq, bt) instantiation at ns (ta_lstm_attrs).
+extern "C" int ta_lstm_scan_attrs(int nq, int bt, int ns, int device,
+                                  int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    if (ns <= 0 || 4 * nq < ns) return (int)cudaErrorInvalidValue;
+    return (int)ta_lstm_attrs_dispatch(nq, bt, ns, out);
+}
+
 extern "C" int ta_lstm_scan(const float* gx, const float* whT,
                             const float* peep, float* out, int T, int B,
-                            int ns, int bt, int device, void* stream) {
+                            int ns, int nq, int bt, int device,
+                            void* stream) {
     // this library links its own CUDA runtime: select PyTorch's device
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    if (T <= 0 || B <= 0 || ns <= 0 || bt <= 0 || bt > TA_LSTM_MAX_BT)
+    if (T <= 0 || B <= 0 || ns <= 0 || 4 * nq < ns)
         return (int)cudaErrorInvalidValue;
-    const int G = 4 * ns;
-    int threads = ((G + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    const size_t smem =
-        (size_t)(ns * G + bt * (2 * ns + G)) * sizeof(float);
-    e = cudaFuncSetAttribute(
-        ta_lstm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = ta_lstm_dispatch(gx, whT, peep, out, T, B, ns, nq, bt,
+                         (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((B + bt - 1) / bt, 2);
-    ta_lstm_scan_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        gx, whT, peep, out, T, B, ns, bt);
     return (int)cudaGetLastError();
 }

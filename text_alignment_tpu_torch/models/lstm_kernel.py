@@ -13,17 +13,25 @@ of both directions, T-major so that one step reads one contiguous
 recurrent weights (``gates = gx[t] + h @ whT``); ``peep`` (2, 3, ns) the
 [WIP, WFP, WOP] peepholes. Gate chunks are [gi | gf | go | ci], the order
 of ``lstm_jax._bidir_scan``. Returns h for every step, (2, T, B, ns).
+
+The kernel's launch plan (:func:`launch_plan`) is a batch tile ``bt``: the
+grid is 2 directions x ceil(B / bt) CTAs, each four lanes per hidden unit,
+every lane holding one column of Wh in registers and what does not fit in
+shared memory (:func:`kernel_attrs` reports how much).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _kernels
-from .._kernels import SMEM_LIMIT
 
-MAX_BATCH_TILE = 8       # TA_LSTM_MAX_BT in csrc/lstm_scan.cu
-_TARGET_BLOCKS = 128     # ~ one block per SM of the card's 132
+# The kernel's instantiations, as listed at its dispatch: NQ (ns / 4 rounded
+# up to one of these, so ns <= 128) -> the batch tiles BT it is built for,
+# those whose Wh quads past the registers fit a block's shared memory.
+TILES = {25: (1, 2, 4, 8), 32: (1, 2, 4)}
 
 
 def bidir_scan_reference(gx, whT, peep):
@@ -54,18 +62,44 @@ def bidir_scan_reference(gx, whT, peep):
     return out
 
 
-def batch_tile(B: int) -> int:
-    """Batch rows per block: the fewest that keep the grid of
-    2 * ceil(B / bt) blocks within about one block per SM."""
-    return min(MAX_BATCH_TILE, max(1, -(-2 * B // _TARGET_BLOCKS)))
+def quads(ns: int) -> int:
+    """NQ: the kernel instantiation for ns (its Wh column of 4 * NQ
+    floats, zero padded past ns). Raises for ns over 128."""
+    for nq in TILES:
+        if 4 * nq >= ns:
+            return nq
+    raise ValueError(f"lstm_scan: ns={ns} is over the {4 * max(TILES)} "
+                     f"hidden units one thread's column can hold")
 
 
-def smem_bytes(ns: int, bt: int) -> int:
-    return 4 * (ns * 4 * ns + bt * (2 * ns + 4 * ns))
+def launch_plan(B: int, ns: int, sms: int) -> int:
+    """bt, the batch rows a CTA: the smallest tile of ns's instantiation
+    whose grid of 2 * ceil(B / bt) CTAs fits one wave on ``sms`` SMs, or
+    past the largest batch one wave holds, the largest tile (more waves).
+    A smaller tile keeps more of each thread's Wh column in registers."""
+    tiles = TILES[quads(ns)]
+    for bt in tiles:
+        if 2 * -(-B // bt) <= sms:
+            return bt
+    return tiles[-1]
 
 
-def bidir_scan_cuda(gx, whT, peep):
-    """Launch ``csrc/lstm_scan.cu`` on PyTorch's current stream."""
+def kernel_attrs(ns: int, bt: int, device) -> dict:
+    """What the compiler made of the (quads(ns), bt) instantiation (on the
+    card): registers and spill bytes per thread, threads per CTA at ns and
+    the instantiation's thread limit, Wh quads in registers, shared bytes
+    per CTA."""
+    vals = (ctypes.c_int * 6)()
+    code = _kernels.lib().ta_lstm_scan_attrs(
+        quads(ns), bt, ns, torch.device(device).index or 0, vals)
+    _kernels.check(code, "lstm_scan attributes")
+    return dict(zip(("regs", "local_bytes", "threads", "max_threads",
+                     "quads_in_registers", "shared_bytes"), vals))
+
+
+def bidir_scan_cuda(gx, whT, peep, bt=None):
+    """Launch ``csrc/lstm_scan.cu`` on PyTorch's current stream, with the
+    batch tile of :func:`launch_plan` unless ``bt`` names one."""
     _, T, B, G = gx.shape
     ns = G // 4
     for name, t, shape in (("gx", gx, (2, T, B, G)),
@@ -79,15 +113,18 @@ def bidir_scan_cuda(gx, whT, peep):
                 f"{tuple(t.shape)} on {t.device}")
     if G % 4 or T == 0 or B == 0:
         raise ValueError(f"lstm_scan: bad shape gx {tuple(gx.shape)}")
-    bt = batch_tile(B)
-    if smem_bytes(ns, bt) > SMEM_LIMIT:
-        raise ValueError(
-            f"lstm_scan: ns={ns} needs {smem_bytes(ns, bt)} bytes of shared "
-            f"memory for Wh, over the {SMEM_LIMIT} one block can use")
+    nq = quads(ns)
+    if bt is None:
+        bt = launch_plan(B, ns, torch.cuda.get_device_properties(
+            gx.device).multi_processor_count)
+    if bt not in TILES[nq]:
+        raise ValueError(f"lstm_scan: no instantiation of bt={bt} at "
+                         f"ns={ns}: tiles {TILES[nq]}")
     out = torch.empty((2, T, B, ns), dtype=torch.float32, device=gx.device)
     L = _kernels.lib()
     code = L.ta_lstm_scan(gx.data_ptr(), whT.data_ptr(), peep.data_ptr(),
-                          out.data_ptr(), T, B, ns, bt, gx.device.index,
+                          out.data_ptr(), T, B, ns, nq, bt,
+                          gx.device.index,
                           _kernels.stream_handle(gx.device))
     _kernels.check(code, "lstm_scan launch")
     _kernels.launches["lstm_scan"] += 1

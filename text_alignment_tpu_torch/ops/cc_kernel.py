@@ -11,6 +11,12 @@ synchronising, and counts its launch in ``_kernels.launches``; the chain
 runs the filter pass three times, so it counts one ``cc_clean`` and three
 ``cc_filter`` launches. The plain PyTorch versions, and the dispatch
 between the two, are in :mod:`.cc`.
+
+Every tensor a launch uses is held by a local name until the C call has
+returned. A temporary's block would go back to PyTorch's caching allocator
+before the kernels are queued, and ctypes releases the GIL during the call:
+another thread issuing on the same stream (the batch's OCR worker) could
+then be handed the block and write into it between the kernel's passes.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ def filter_cuda(page, H: int, W: int, thresh: int, mode: int, by_area: bool,
     Wq = page.shape[1]
     out = torch.empty_like(page)
     ok = torch.empty(2, dtype=torch.int32, device=page.device)
+    scratch = _scratch(page, H, max_runs)
     code = _kernels.lib().ta_cc_filter(
         page.data_ptr(), out.data_ptr(), ok.data_ptr(),
-        _scratch(page, H, max_runs).data_ptr(), H, Wq, W, int(thresh),
+        scratch.data_ptr(), H, Wq, W, int(thresh),
         int(mode), int(by_area), int(max_runs), page.device.index,
         _kernels.stream_handle(page.device))
     _kernels.check(code, "cc_filter launch")
@@ -47,9 +54,10 @@ def table_cuda(page, H: int, W: int, thresh: int, max_ccs: int,
     Wq = page.shape[1]
     table = torch.empty((max_ccs, 5), dtype=torch.int32, device=page.device)
     ok = torch.empty(2, dtype=torch.int32, device=page.device)
+    scratch = _scratch(page, H, max_runs)
     code = _kernels.lib().ta_cc_table(
         page.data_ptr(), table.data_ptr(), ok.data_ptr(),
-        _scratch(page, H, max_runs).data_ptr(), H, Wq, W, int(thresh),
+        scratch.data_ptr(), H, Wq, W, int(thresh),
         int(max_ccs), int(max_runs), page.device.index,
         _kernels.stream_handle(page.device))
     _kernels.check(code, "cc_table launch")
@@ -64,10 +72,11 @@ def clean_cuda(page, H: int, W: int, despeckle_amt: int,
     out = torch.empty_like(page)
     tmp = torch.empty((2, H, Wq), dtype=torch.int32, device=page.device)
     oks = torch.empty(7, dtype=torch.int32, device=page.device)
+    scratch = _scratch(page, H, max_runs)
     code = _kernels.lib().ta_cc_clean(
         page.data_ptr(), out.data_ptr(), tmp[0].data_ptr(),
         tmp[1].data_ptr(), oks.data_ptr(), oks[6:].data_ptr(),
-        _scratch(page, H, max_runs).data_ptr(), H, Wq, W,
+        scratch.data_ptr(), H, Wq, W,
         int(despeckle_amt), int(sat_area_thresh), int(by_area),
         int(max_runs), page.device.index,
         _kernels.stream_handle(page.device))

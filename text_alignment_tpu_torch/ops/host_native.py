@@ -13,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -37,6 +38,27 @@ _lib = None
 _load_error: str | None = None
 
 
+def build_library(src: str, so_path: str) -> None:
+    """Compile the C++ source ``src`` into the shared library ``so_path``
+    with g++, unless it is there already. The compiler writes a name of
+    this process's and thread's own beside the target, renamed over it
+    when done: processes that build at once on a cold cache (the test
+    workers) never write, rename or load one another's partial file."""
+    if os.path.exists(so_path):
+        return
+    tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        subprocess.check_call(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+             "-o", tmp, src],
+            stderr=subprocess.DEVNULL,
+        )
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _build_and_load():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
@@ -50,14 +72,7 @@ def _build_and_load():
                 os.path.abspath(__file__)))), "build", "native")
         os.makedirs(cache_dir, exist_ok=True)
         so_path = os.path.join(cache_dir, f"raster_{tag}.so")
-        if not os.path.exists(so_path):
-            tmp = so_path + ".tmp"
-            subprocess.check_call(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", tmp, _SRC],
-                stderr=subprocess.DEVNULL,
-            )
-            os.replace(tmp, so_path)
+        build_library(_SRC, so_path)
         lib = ctypes.CDLL(so_path)
 
         u8p = ctypes.POINTER(ctypes.c_uint8)
