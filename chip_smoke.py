@@ -11,7 +11,9 @@ Phases, each printing one line (any failure exits non-zero):
      the batch tile bt (one CTA a tile, K = 1), threads per CTA, the
      compiler's registers and spill bytes, kernel ms and cuDNN's
      torch.nn.LSTM ms on the same frames; at the gate strips, the ms of
-     the other batch tiles;
+     the other batch tiles; the wide route (ns = 256, seeded weights)
+     against its plain version on the folio's first 48 frames, then its ms
+     beside cuDNN's torch.nn.LSTM(48, 256) on the folio's frames;
   4. the normalizer tail kernel against its plain version on the card, on
      the folio's own h-gauss output; bar: ink counts exact, center within
      one row, >= 99% of valid columns identical;
@@ -23,9 +25,13 @@ Phases, each printing one line (any failure exits non-zero):
   6. the same recognizer and page on the CPU (the plain versions) against
      the card: every line's decoded characters identical;
   7. nw_fill: the kernel against its plain version on a seeded 4096^2 pair
-     (pointer bytes identical on every valid cell), its GCUPS at the
-     bench's 8191^2 and 16383^2 pairs, perform_alignment(backend="device")
-     against backend="host" at 16383^2 (aligned lists equal), and the
+     with the planned segments and with a forced S = 128 (pointer bytes
+     identical on every valid cell); the plan (P segments of S lanes, run
+     lanes a thread), ms and GCUPS at the bench's 8191^2 and 16383^2
+     pairs, and there the ms at forced S = 64 to 1024 lanes and 1 to 4
+     lanes a thread; the chain floor; perform_alignment(backend="device") against
+     backend="host" at 16383^2 and at 26,000 x 2,000 (past the old
+     one-block cap of 25,600 lanes; aligned lists equal), and the
      device/host times of perform_alignment from 128^2 to 2048^2;
   8. nw_traceback: the kernel against its plain version on the phase-7
      pointers and on a mixed-length batch (ops[:k], k, xpt, ypt identical);
@@ -138,6 +144,7 @@ from text_alignment_tpu_torch.synth import (
 from text_alignment_tpu_torch.utils.timing import stage_timer
 
 NI, NS = 48, 100
+WIDE_NS = 256  # phase 3's width on the recurrence's wide route
 LSTM_BAR = 1e-4
 OCR_KERNELS = ("lstm_scan", "lineest_tail")
 NW_ALPHABET = "abcdefgh "
@@ -289,7 +296,8 @@ def lstm_plan_line(B, ns, dev, bt):
     return (f"plan bt={bt} K=1: {2 * -(-B // bt)} CTAs of {a['threads']} "
             f"threads, {a['regs']} registers a thread, {a['local_bytes']} "
             f"spill bytes, Wh quads in registers {a['quads_in_registers']} "
-            f"of {lk.quads(ns)}, shared bytes {a['shared_bytes']}")
+            f"and in global memory {a['quads_in_global']} of "
+            f"{lk.quads(ns)}, shared bytes {a['shared_bytes']}")
 
 
 def lstm_case(params, frames, lengths, dev, alt_tiles=()):
@@ -342,6 +350,7 @@ def phase_lstm(rec, fi, dev):
     lengths = torch.from_numpy(
         rng.integers(256, 513, 96).astype(np.int32)).to(dev)
     lstm_case(rec.params, frames, lengths, dev, alt_tiles=(1, 4, 8))
+    phase_lstm_wide(fi, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -351,6 +360,40 @@ def phase_lstm(rec, fi, dev):
     return {"max_abs_err": folio["err"], "ms": folio["ms"],
             "plain_ms": plain_ms, **folio["bound"],
             "library_ms": folio["library_ms"]}
+
+
+def phase_lstm_wide(fi, dev):
+    """Phase 3, the wide route: ns = WIDE_NS on seeded weights against its
+    plain version on the folio's first 48 frames (the plain version loops
+    over ns in Python), then the kernel's ms beside cuDNN's
+    torch.nn.LSTM(NI, WIDE_NS, bidirectional=True) on the folio's frames."""
+    rng = np.random.default_rng(WIDE_NS)
+    params = tl.params_from_np(
+        tl.init_params_np(rng, NI, WIDE_NS, 29, initial_range=0.3), dev)
+    frames, lengths = fi["frames"], fi["lengths"]
+    short = frames[:, :48].contiguous()
+    gx, whT, peep = tl.scan_inputs(params, short, lengths.clamp(max=48))
+    got = bidir_scan_cuda(gx, whT, peep)
+    ref = bidir_scan_reference(gx, whT, peep)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max().item())
+    check(err <= LSTM_BAR, f"lstm_scan (ns = {WIDE_NS}) disagrees: {err} > "
+          f"{LSTM_BAR}")
+    gx, whT, peep = tl.scan_inputs(params, frames, lengths)
+    _, T, B, _ = gx.shape
+    bt = lk.launch_plan(
+        B, WIDE_NS, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ms = cuda_ms(lambda: bidir_scan_cuda(gx, whT, peep), 5)
+    lstm = torch.nn.LSTM(NI, WIDE_NS, bidirectional=True,
+                         batch_first=True).to(dev)
+    with torch.no_grad():
+        library_ms = median_ms(lambda: lstm(frames))
+    b = bound(*lstm_work(gx, lengths))
+    print(f"lstm_scan wide: ns={WIDE_NS} max_abs_err={err:.3e} at T=48 (bar "
+          f"{LSTM_BAR}); B={B} T={T} {lstm_plan_line(B, WIDE_NS, dev, bt)}; "
+          f"kernel {ms:.3f} ms ({ms * 1e3 / T:.3f} us a step) torch.nn.LSTM "
+          f"(cuDNN) {library_ms:.3f} ms, bound {b['bound_ms']:.5f} ms by "
+          f"{b['bound_by']}")
 
 
 def phase_tail(fi):
@@ -520,40 +563,88 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def fill_plan_text(B, L, sms, seg=None):
+    """'P = ..., S = ..., run = ...' of a launch of B pairs of L lanes."""
+    S, run = nwk.fill_plan(B, L, sms) if seg is None else (
+        seg, nwk._lanes_per_thread(seg))
+    return (f"P = {-(-L // S)} segments of S = {S} lanes, run = {run} "
+            f"({S // run} threads)")
+
+
+def max_sm_mhz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def chain_floor_ms(D: int, mhz: float) -> float:
+    """The fill's latency floor less its barriers: D diagonals, each a
+    dependent chain of four integer operations (the gap add, the two
+    maxima of max3, the boundary select) at 4 cycles each, at the card's
+    highest SM clock. One barrier a diagonal comes on top (not counted)."""
+    return D * 16 / (mhz * 1e3)
+
+
 def phase_nw_fill(dev):
-    """Phase 7: the fill kernel against its plain version at 4096², its
-    GCUPS at the bench's 8191² and 16383² pairs, perform_alignment on the
-    card against the host fill at 16383², and the host/device crossover of
+    """Phase 7: the fill kernel against its plain version at 4096² (the
+    planned segments and a forced S = 128); the plan and the kernel's ms
+    at the bench's 8191² and 16383² pairs, and there at forced S = 64 to
+    1024 and 1 to 4 lanes a thread; perform_alignment on the card against the host fill at
+    16383² and at 26,000 x 2,000; the host/device crossover of
     perform_alignment."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = max_sm_mhz()
     t, o = seeded_pair(4095, 4095, 7)
     tt, oo, nts, nos = nw_tensors([t], [o], dev)
     row = torch.tensor([DEFAULT_ROW], dtype=torch.int32, device=dev)
     got = nwk.fill_cuda(tt, oo, row)
     ref, plain_ms = timed_once(lambda: nwk.fill_reference(tt, oo, row))
     same = valid_equal(got, ref, nts, nos)
+    small = valid_equal(nwk.fill_cuda(tt, oo, row, seg=128), ref, nts, nos)
     ms = cuda_ms(lambda: nwk.fill_cuda(tt, oo, row), 5)
-    print(f"nw_fill: 4096^2 pair, pointer bytes identical on valid cells "
-          f"{same}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-    check(same, "nw_fill disagrees with its plain version at 4096^2")
     L, NoP = tt.shape[1], oo.shape[1]
+    print(f"nw_fill: 4096^2 pair, {fill_plan_text(1, L, sms)}: pointer "
+          f"bytes identical on valid cells {same}, and at a forced "
+          f"{fill_plan_text(1, L, sms, 128)}: {small}; kernel {ms:.3f} ms "
+          f"plain {plain_ms:.3f} ms; chain floor "
+          f"{chain_floor_ms(L + NoP - 1, mhz):.4f} ms (max SM clock {mhz} "
+          f"MHz, barriers not counted)")
+    check(same, "nw_fill disagrees with its plain version at 4096^2")
+    check(small, "nw_fill at S = 128 disagrees with its plain version")
     fill_bound = bound((L + NoP - 1) * L + 4 * (L + NoP) + 32,
                        20 * int(nts[0]) * int(nos[0]))
     for n in (8191, 16383):
         a, b = seeded_pair(n, n, n)
         ta, ob, _, _ = nw_tensors([a], [b], dev)
+        Ln, cells = ta.shape[1], (n + 1) ** 2
         f_ms = cuda_ms(lambda: nwk.fill_cuda(ta, ob, row), 3)
-        print(f"nw_fill: {n}^2 pair (L = {ta.shape[1]}) kernel {f_ms:.3f} ms "
-              f"= {(n + 1) ** 2 / f_ms / 1e6:.4f} GCUPS (cells Nt*No with "
-              f"sentinels)")
-    a, b = seeded_pair(16383, 16383, 16383)
-    dev_al, dev_ms = wall_ms(lambda: perform_alignment(
-        a, b, backend="device", device=dev))
-    host_al, host_ms = wall_ms(lambda: perform_alignment(
-        a, b, backend="host"))
-    print(f"nw perform_alignment 16383^2: device {dev_ms:.1f} ms, host "
-          f"{host_ms:.1f} ms, aligned lists equal {dev_al == host_al}")
-    check(dev_al == host_al, "device alignment differs from the host's at "
-          "16383^2")
+        print(f"nw_fill: {n}^2 pair (L = {Ln}), {fill_plan_text(1, Ln, sms)}:"
+              f" kernel {f_ms:.3f} ms = {cells / f_ms / 1e6:.4f} GCUPS (cells "
+              f"Nt*No with sentinels); chain floor "
+              f"{chain_floor_ms(2 * Ln - 1, mhz):.4f} ms")
+        sweep = []
+        for seg in (64, 128, 256, 512, 1024):
+            for run in (1, 2, 4):
+                if seg // run >= 32:
+                    s_ms = cuda_ms(lambda: nwk.fill_cuda(
+                        ta, ob, row, seg=seg, run=run), 3)
+                    sweep.append(f"S={seg} run={run} ({seg // run} threads) "
+                                 f"{s_ms:.3f}")
+        print(f"nw_fill: {n}^2 forced segments, ms: " + "; ".join(sweep))
+    for n, m, seed in ((16383, 16383, 16383), (26000, 2000, 26000)):
+        a, b = seeded_pair(n, m, seed)
+        dev_al, dev_ms = wall_ms(lambda: perform_alignment(
+            a, b, backend="device", device=dev))
+        host_al, host_ms = wall_ms(lambda: perform_alignment(
+            a, b, backend="host"))
+        print(f"nw perform_alignment {n} x {m} (L = {nwt._bucket(n + 1)}): "
+              f"device {dev_ms:.1f} ms, host {host_ms:.1f} ms, aligned lists "
+              f"equal {dev_al == host_al}")
+        check(dev_al == host_al, f"device alignment differs from the host's "
+              f"at {n} x {m}")
     for n in (128, 256, 512, 1024, 2048):
         a, b = seeded_pair(n, n, n)
         perform_alignment(a, b, backend="device", device=dev)
@@ -1216,6 +1307,9 @@ def main() -> int:
     del packed
     stats["nw_fill_batched"], grid_launches = phase_nw_batched(dev, page)
     nw_launches = phase_nw_process()
+    # the long pairs' packed pointers (up to 735 MB a launch) stay in the
+    # caching allocator; hand them back before the batch phases
+    torch.cuda.empty_cache()
     # each kernel's launches come from its own path's run: the folio
     # (phase 5), process() on the large page (phase 10), the 2400^2 grid
     launches.update({k: nw_launches[k] for k in ("nw_fill", "nw_traceback")})

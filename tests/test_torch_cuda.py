@@ -48,6 +48,11 @@ def cuda():
     (20, 64, 48, 100, 8),          # all 25 Wh quads in shared memory
     (6, 48, 48, 128, None),        # 512 threads, 12 quads in shared memory
     (300, 16, 48, 128, None),      # bt = 4 at ns = 128, past one wave
+    (4, 24, 48, 160, None),        # the wide route: global-tier quads
+    (12, 16, 48, 256, None),       # 1024 threads, one unit group
+    (96, 8, 48, 256, None),        # bt = 2 on the wide route
+    (3, 12, 48, 300, None),        # two unit groups, a padded quad
+    (5, 10, 48, 300, 4),           # a ragged wide tile
 ])
 def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns, bt):
     rng = np.random.default_rng(B + T)
@@ -64,7 +69,7 @@ def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns, bt):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("ns", [100, 128])
+@pytest.mark.parametrize("ns", [100, 128, 256])
 @pytest.mark.parametrize("B", [8, 12, 16, 32, 64, 96, 128])
 def test_lstm_scan_plan_fits(cuda, B, ns):
     """For every batch the recognizer plans, the chosen instantiation's
@@ -75,11 +80,13 @@ def test_lstm_scan_plan_fits(cuda, B, ns):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     bt = lk.launch_plan(B, ns, sms)
     a = lk.kernel_attrs(ns, bt, cuda)
-    assert bt == lk.TILES[lk.quads(ns)][-1] or 2 * -(-B // bt) <= sms
+    assert bt == lk.tiles(ns)[-1] or 2 * -(-B // bt) <= sms
     assert a["threads"] == -(-4 * ns // 32) * 32 <= a["max_threads"]
     assert a["regs"] * 32 * -(-a["threads"] // 32 // 4) <= 16384
     assert a["shared_bytes"] <= _kernels.SMEM_LIMIT
     assert 0 <= a["quads_in_registers"] <= lk.quads(ns)
+    assert (a["quads_in_global"] == 0 if ns <= 128
+            else 0 <= a["quads_in_global"] < lk.quads(ns))
 
 
 @pytest.mark.parametrize("B,Hp,Wp", [(12, 96, 1536), (5, 64, 512)])
@@ -150,9 +157,9 @@ def test_wrappers_reject_bad_inputs(cuda):
         bidir_scan(gx, torch.zeros((2, 100, 400), device=cuda),
                    torch.zeros((2, 3, 100), device=cuda, dtype=torch.float64))
     big = torch.zeros((2, 4, 2, 4 * 160), device=cuda)
-    with pytest.raises(ValueError):  # a Wh column of ns=160 over registers
-        bidir_scan(big, torch.zeros((2, 160, 640), device=cuda),
-                   torch.zeros((2, 3, 160), device=cuda))
+    with pytest.raises(ValueError):  # no bt = 8 tile on the wide route
+        bidir_scan_cuda(big, torch.zeros((2, 160, 640), device=cuda),
+                        torch.zeros((2, 3, 160), device=cuda), bt=8)
 
 
 def _nw_batch(pairs, dev):
@@ -188,6 +195,54 @@ def test_nw_fill_kernel_matches_plain(cuda, n, m):
     before = _kernels.launches["nw_fill"]
     got = nw_kernel.fill(t, o, row)
     assert _kernels.launches["nw_fill"] == before + 1
+    ref = nw_kernel.fill_reference(t, o, row)
+    torch.cuda.synchronize()
+    assert _valid_equal(got, ref, nts, nos)
+
+
+@pytest.mark.parametrize("n,m,seg", [(1000, 1000, 128), (1000, 1000, 256),
+                                     (1000, 300, 128), (300, 1000, 128),
+                                     (1000, 700, 96), (1000, 700, 1056)])
+def test_nw_fill_segments_match_plain(cuda, n, m, seg):
+    """One pair spread over 4 to 11 segments (a forced S; S = 96 leaves a
+    ragged last segment), square and uneven, and one segment wider than
+    the pair (S = 1056 > L = 1024, its lanes past L masked): pointer bytes
+    equal the plain version's on every valid cell. The Python mirror of
+    the shared-memory layout equals the library's."""
+    t, o, nts, nos = _nw_batch([_nw_pair(n, m, n + 3 * m)], cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    P = -(-t.shape[1] // seg)
+    assert 4 <= P <= 11 or (P == 1 and seg > t.shape[1])
+    threads = seg // nw_kernel._lanes_per_thread(seg)
+    assert (_kernels.lib().ta_nw_fill_smem(seg, threads)
+            == nw_kernel.fill_smem_bytes(seg))
+    got = nw_kernel.fill_cuda(t, o, row, seg=seg)
+    ref = nw_kernel.fill_reference(t, o, row)
+    torch.cuda.synchronize()
+    assert _valid_equal(got, ref, nts, nos)
+
+
+def test_nw_device_alignment_past_the_old_cap(cuda):
+    """A 26,000-element transcript against a 2,000-element OCR (L =
+    26,112, over the one-block cap of 25,600 lanes) aligns on the card
+    exactly as on the host."""
+    from text_alignment_tpu_torch.align import perform_alignment
+
+    t, o = _nw_pair(26000, 2000, 26)
+    before = _kernels.launches["nw_fill"]
+    dev = perform_alignment(t, o, backend="device", device=cuda)
+    assert _kernels.launches["nw_fill"] == before + 1
+    assert dev == perform_alignment(t, o, backend="host")
+
+
+def test_nw_fill_batched_past_the_old_cap(cuda):
+    """Two pairs of L = 26,112 in one batched launch, planned into
+    segments: pointer bytes equal the plain version's."""
+    t, o, nts, nos = _nw_batch([_nw_pair(26000, 200, 1),
+                                _nw_pair(25800, 230, 2)], cuda)
+    assert t.shape[1] == 26112
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    got = nw_kernel.fill_batched(t, o, row)
     ref = nw_kernel.fill_reference(t, o, row)
     torch.cuda.synchronize()
     assert _valid_equal(got, ref, nts, nos)
@@ -248,9 +303,9 @@ def test_nw_wrappers_reject_bad_inputs(cuda):
         nw_kernel.fill_batched(t, o[:2].contiguous(), row)
     with pytest.raises(ValueError):  # the single-pair entry takes one pair
         nw_kernel.fill(t, o, row)
-    with pytest.raises(ValueError):  # over 32 lanes x 1024 threads
-        nw_kernel.fill(torch.zeros((1, 65536), dtype=torch.int32,
-                                   device=cuda), o[:1].contiguous(), row)
+    with pytest.raises(ValueError):  # a segment over 32 lanes x 1024 threads
+        nw_kernel.fill_cuda(t[:1].contiguous(), o[:1].contiguous(), row,
+                            seg=65536)
     packed = nw_kernel.fill_batched(t, o, row)
     with pytest.raises(ValueError):  # No past the bucket
         nw_kernel.traceback_batched(packed, nts, nos + 1000)

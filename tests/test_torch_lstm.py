@@ -48,10 +48,12 @@ def _jax_scan(d, xs, lens):
     return p, xs_j, xs_rev
 
 
-@pytest.mark.parametrize("B,T,ni,ns", [(3, 12, 8, 12), (12, 24, 48, 100)])
+@pytest.mark.parametrize("B,T,ni,ns", [(3, 12, 8, 12), (12, 24, 48, 100),
+                                      (2, 6, 8, 160), (2, 4, 8, 256)])
 def test_scan_reference_matches_jax_scan(B, T, ni, ns):
     """B=12 at the production widths (ni=48, ns=100): a 9-12 line folio
-    packs at B=12."""
+    packs at B=12. ns = 160 and 256 are the kernel's wide route (one and
+    four-lane groups past ns = 128)."""
     d, xs, lens = _case(1, B, T, ni, ns)
     p, xs_j, xs_rev = _jax_scan(d, xs, lens)
     f0, b0 = lstm_jax._bidir_scan(p.fwd, p.bwd, xs_j, xs_rev)
@@ -150,19 +152,29 @@ def test_kernel_launch_plan(B):
 
 
 def test_kernel_launch_plan_refuses_what_cannot_fit():
-    """ns over 128 has no instantiation; a batch tile the kernel is not
-    built for (bt = 8 at ns = 128, whose Wh would overflow a block's shared
-    memory) is refused before a launch; a batch past one wave takes the
+    """ns over 128 takes the wide route: NQ = ceil(ns / 4), tiles 1/2/4,
+    the smallest whose grid fits one wave, up to the widest ns whose h and
+    c buffers fit a block; a batch tile the kernel is not built for (bt = 8
+    at ns = 128, whose Wh would overflow a block's shared memory, or at a
+    wide ns) is refused before a launch; a batch past one wave takes the
     largest tile; the small widths share the ns = 100 instantiation."""
-    with pytest.raises(ValueError):
-        lk.launch_plan(12, 129, H100_SMS)
-    with pytest.raises(ValueError):
-        lk.quads(160)
     assert lk.quads(12) == lk.quads(100) == 25 and lk.quads(128) == 32
+    assert lk.quads(129) == 33 and lk.quads(160) == 40
+    assert lk.quads(256) == 64 and lk.quads(300) == 75
+    assert lk.tiles(160) == lk.tiles(4096) == lk.WIDE_TILES == (1, 2, 4)
+    assert lk.tiles(6000) == (1, 2)  # 4 rows of h and c are over a block
+    assert lk.tiles(19368) == (1,)
+    with pytest.raises(ValueError):
+        lk.tiles(19369)
+    assert lk.launch_plan(12, 129, H100_SMS) == 1
+    assert lk.launch_plan(12, 256, H100_SMS) == 1
+    assert lk.launch_plan(96, 256, H100_SMS) == 2
+    assert lk.launch_plan(4096, 300, H100_SMS) == 4
     assert lk.launch_plan(4096, 100, H100_SMS) == 8
     assert lk.launch_plan(4096, 128, H100_SMS) == 4
     assert lk.launch_plan(96, 100, 48) == 4  # a card of fewer SMs
-    for ns, bt in ((100, 3), (100, 16), (4, 0), (128, 8)):
+    for ns, bt in ((100, 3), (100, 16), (4, 0), (128, 8), (160, 8),
+                   (300, 3)):
         gx = torch.zeros((2, 3, 4, 4 * ns), device="meta")
         with pytest.raises(ValueError):
             lk.bidir_scan_cuda(gx, torch.zeros((2, ns, 4 * ns), device="meta"),

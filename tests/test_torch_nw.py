@@ -279,14 +279,134 @@ def test_replay_ops_matches_jax(seed):
             == nw_jax.replay_ops(t, o, ops, k, x, y))
 
 
-@pytest.mark.parametrize("L", [128, 1024, 2048, 2560, 8192, 16384])
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("L", [128, 1024, 2048, 2560, 8192, 16384, 26112,
+                               32768])
 def test_fill_launch_shape_fits_a_block(L):
-    """The fill kernel's block for every bucket up to the 16383^2 bench
-    pair: at most 1024 threads, whole lanes per thread, shared memory
-    within one block's 227 KB."""
-    run = nw_kernel.lanes_per_thread(L)
-    assert L % run == 0 and L // run <= nw_kernel.MAX_THREADS
-    assert nw_kernel.fill_smem_bytes(L) <= nw_kernel.SMEM_LIMIT
+    """The fill kernel's plan for every bucket up to the 16383^2 bench
+    pair and past the old one-block cap: the segments cover [0, L)
+    exactly, each CTA within 1024 threads of whole runs and within one
+    block's 227 KB of shared memory; a pair of at most 1024 lanes and the
+    729-row grids keep one CTA a pair wherever it fits, and a lone long
+    pair spreads over several SMs."""
+    for B in (1, 6, 729):
+        S, run = nw_kernel.fill_plan(B, L, H100_SMS)
+        P = -(-L // S)
+        assert (P - 1) * S < L <= P * S
+        assert S % run == 0 and S // run <= nw_kernel.MAX_THREADS
+        assert nw_kernel.fill_smem_bytes(S, run) <= nw_kernel.SMEM_LIMIT
+        if P > 1:
+            assert S % 32 == 0
+        if B == 729 and L <= 16384:
+            assert (S, P) == (L, 1)
+        if L <= nw_kernel.MAX_THREADS:
+            assert (S, run, P) == (L, 1, 1)
+        elif B == 1:
+            assert P > 1 and S >= nw_kernel.SEG_FLOOR and P <= H100_SMS
+    assert nw_kernel.fill_plan(1, 8192, H100_SMS) == (nw_kernel.SEG_FLOOR, 1)
+
+
+def test_check_fill_takes_long_transcripts():
+    """A 26,000-element transcript (L = 26,112) passes the shape checks:
+    the fill has no length cap."""
+    t = torch.zeros((1, 26112), dtype=torch.int32)
+    o = torch.zeros((1, 2048), dtype=torch.int32)
+    row = torch.zeros((1, 8), dtype=torch.int32)
+    assert nw_kernel._check_fill("nw_fill", t, o, row) == (1, 26112, 2048)
+    S, run = nw_kernel.fill_plan(1, 26112, H100_SMS)
+    assert -(-26112 // S) <= H100_SMS and S >= nw_kernel.SEG_FLOOR
+
+
+def _max3(a, b, c):
+    v01 = np.maximum(a, b)
+    p01 = np.where(a >= b, 0, 1)
+    return np.maximum(v01, c), np.where(v01 >= c, p01, 2)
+
+
+def segmented_fill(t, o, row, S):
+    """The fill kernel's segment hand-off on the CPU: one pair's wavefront
+    one segment of S lanes at a time, in int32, with the kernel's state (a
+    lane's m, x, y and carried OCR id at d-1, its max3 and argmax at d-2).
+    Segment k runs diagonals [kS, min(D, kS + S - 1 + NoP)); its first
+    lane's left neighbour at diagonal d is segment k-1's record of
+    diagonal d - 1 (its last lane after that diagonal), or the neutral
+    record past the diagonals segment k-1 ran. Returns (D, L) uint8; cells
+    outside 0 <= j < NoP hold what this model left there."""
+    neg = np.int32(nw_kernel.INT_NEG)
+    L, NoP = len(t), len(o)
+    D = L + NoP - 1
+    match, mismatch, gox, goy, gex, gey, bge_r0, bge_c0 = (
+        np.int32(v) for v in row)
+    out = np.zeros((D, L), np.uint8)
+    rec = None
+    for k in range(-(-L // S)):
+        lanes = np.arange(k * S, min(k * S + S, L))
+        n = len(lanes)
+        m1, x1, y1 = (np.full(n, neg, np.int32) for _ in range(3))
+        o1 = np.zeros(n, np.int32)
+        best, barg = np.full(n, neg, np.int32), np.zeros(n, np.int32)
+        d0 = k * S
+        d_end, rec_end = min(D, d0 + S - 1 + NoP), min(D, d0 - 1 + NoP)
+        new = np.zeros((D, 6), np.int32)
+        for d in range(d0, d_end):
+            if k == 0:
+                left = (neg, neg, neg, o[d] if d < NoP else 0, neg, 0)
+            elif d - 1 < rec_end:
+                left = rec[d - 1]
+            else:
+                left = (neg, neg, neg, 0, neg, 0)
+            lm, lx, ly, lo, lb, la = (
+                np.concatenate([[v], a[:-1]]).astype(np.int32)
+                for v, a in zip(left, (m1, x1, y1, o1, best, barg)))
+            s = np.where(t[lanes] == lo, match, mismatch).astype(np.int32)
+            m_int = lb + s
+            y_int, yp = _max3(m1 + goy + gey, x1 + goy + gey, y1 + gey)
+            x_int, xp = _max3(lm + gox + gex, lx + gex, ly + gox + gex)
+            best, barg = _max3(m1, x1, y1)
+            j = (d - lanes).astype(np.int32)
+            row0, col0 = lanes == 0, (j == 0) & (lanes > 0)
+            invalid = (j < 0) | (j >= NoP)
+            lane32 = lanes.astype(np.int32)
+            mv = np.where(row0, bge_r0 * j,
+                          np.where(col0, bge_c0 * lane32, m_int))
+            xv = np.where(row0, bge_r0 * j, np.where(col0, neg, x_int))
+            yv = np.where(row0, neg, np.where(col0, bge_c0 * lane32, y_int))
+            m1, x1, y1 = (np.where(invalid, neg, v).astype(np.int32)
+                          for v in (mv, xv, yv))
+            o1 = lo
+            out[d, lanes] = la | (xp << 2) | (yp << 4)
+            new[d] = (m1[-1], x1[-1], y1[-1], o1[-1], best[-1], barg[-1])
+        rec = new
+    return out
+
+
+@pytest.mark.parametrize("n,m,S", [(100, 40, 8), (200, 60, 32),
+                                   (200, 60, 48), (40, 200, 16),
+                                   (130, 250, 64)])
+def test_segment_hand_off_matches_fill(n, m, S):
+    """The kernel's hand-off between segments (records of diagonal d - 1
+    for the m/x/y/OCR neighbour, of d - 2 for the mat candidates; dead
+    diagonals skipped; the neutral record past the left segment's end),
+    modelled on the CPU with small forced S (S = 48 leaves a ragged last
+    segment), gives fill_reference's and nw_jax's XLA scan's pointer bytes
+    on every valid cell, on pairs whose L and NoP differ."""
+    rng = random.Random(n * 31 + m + S)
+    tp, op = random_pair(rng, n, m)
+    tp, op = tp + [" "], op + [" "]
+    sc = resolve_scoring([7, -3, -5, -6, -2, -1])
+    t, o, nts, nos = _bucket_batch([(tp[:-1], op[:-1])])
+    row = nw_torch.kernel_params(sc)
+    got = segmented_fill(t[0].numpy(), o[0].numpy(), row, S)
+    ref = nw_kernel.fill_reference(t, o, torch.from_numpy(row[None]))[0]
+    Nt, No = int(nts[0]), int(nos[0])
+    assert -(-t.shape[1] // S) > 1
+    np.testing.assert_array_equal(valid_cells(got, Nt, No),
+                                  valid_cells(ref.numpy(), Nt, No))
+    np.testing.assert_array_equal(
+        valid_cells(got, Nt, No),
+        valid_cells(nw_jax.fill_jax_packed(tp, op, sc), Nt, No))
 
 
 @pytest.mark.parametrize("bad", ["sizes", "dtype", "rank"])

@@ -141,10 +141,13 @@ def lib():
                                       p, p, p, i, p]
         L.ta_nw_fill_smem.restype = ctypes.c_size_t
         L.ta_nw_fill_smem.argtypes = [i, i]
+        L.ta_nw_fill_scratch_bytes.restype = ctypes.c_size_t
+        L.ta_nw_fill_scratch_bytes.argtypes = [i, i, i, i]
         L.ta_nw_fill.restype = i
-        L.ta_nw_fill.argtypes = [p, p, p, p, i, i, i, i, p]
+        L.ta_nw_fill.argtypes = [p, p, p, p, i, i, i, i, p, i, p]
         L.ta_nw_fill_batched.restype = i
-        L.ta_nw_fill_batched.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        L.ta_nw_fill_batched.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p,
+                                         i, p]
         L.ta_nw_traceback_batched.restype = i
         L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
         L.ta_cc_scratch_ints.restype = ctypes.c_size_t

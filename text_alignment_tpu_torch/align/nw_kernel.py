@@ -16,6 +16,11 @@ shared). The fill returns packed pointers (B, D = L + NoP - 1, L) uint8,
 ``packed[b, i + j, i] = mp | xp << 2 | yp << 4``. The traceback returns the
 wire (B, 3 + L + NoP) int32 ``[k, xpt, ypt, ops...]``, of which ``ops[:k]``
 are defined.
+
+The fill kernel runs each pair as P = ceil(L / S) segments of S lanes, one
+CTA a segment, handing each segment's boundary to the next through global
+scratch (``csrc/nw_fill.cu``); :func:`fill_plan` picks S from the pair count
+and the card's SM count, and any L has a plan.
 """
 
 from __future__ import annotations
@@ -28,7 +33,13 @@ from .._kernels import SMEM_LIMIT
 INT_NEG = -(2**30)
 FLOAT_NEG = -1e30
 MAX_THREADS = 1024  # TA_NW_MAX_THREADS in csrc/nw_fill.cu
+EDGE_CHUNK = 32  # TA_NW_CHUNK: diagonals a segment publishes at a time
 _RUNS = (1, 2, 4, 8, 16, 32)  # lanes per thread the fill kernel is built for
+# The narrowest segment fill_plan gives a pair that shares the card with
+# few others: of S = 64 to 1024 lanes at 1 to 4 lanes a thread, S = 128 at
+# one lane a thread was the fastest at 8191^2 and 16383^2 (chip_smoke.py
+# phase 7 times them; PERF.md).
+SEG_FLOOR = 128
 
 
 def _first_max3(a, b, c):
@@ -97,19 +108,58 @@ def fill_reference(t, o, params, S=None):
     return out
 
 
-def lanes_per_thread(L: int) -> int:
-    """Contiguous lanes each thread of the fill kernel owns: the fewest
-    that keep the block within 1024 threads."""
+def _lanes_per_thread(S: int) -> int:
+    """Contiguous lanes each thread of a segment of S lanes owns: the
+    fewest that keep the CTA within 1024 threads."""
     for run in _RUNS:
-        if L % run == 0 and L // run <= MAX_THREADS:
+        if S % run == 0 and S // run <= MAX_THREADS:
             return run
-    raise ValueError(f"nw_fill: L={L} needs more than {MAX_THREADS} threads "
-                     f"of at most {_RUNS[-1]} lanes")
+    raise ValueError(f"nw_fill: a segment of {S} lanes needs more than "
+                     f"{MAX_THREADS} threads of at most {_RUNS[-1]} lanes")
 
 
-def fill_smem_bytes(L: int) -> int:
-    threads = L // lanes_per_thread(L)
-    return 9 * L + 2 * (-(-threads // 32)) * 24  # csrc/nw_fill.cu layout
+def fill_smem_bytes(S: int, run: int | None = None) -> int:
+    """Dynamic shared bytes of one CTA of S lanes, ``run`` a thread
+    (default: the fewest that fit; ``ta_nw_fill_smem``): 9 bytes a lane
+    (the argmax bytes padded to whole words), two warp edges of 24 bytes a
+    warp, two staged chunks of the first lane's left neighbours and the
+    ticket."""
+    threads = S // (_lanes_per_thread(S) if run is None else run)
+    return (8 * S + 2 * (-(-threads // 32)) * 24 + 2 * EDGE_CHUNK * 24
+            + -(-S // 4) * 4 + 4)
+
+
+def _segment(L: int, P: int):
+    """S of ``P`` segments over L lanes: ceil(L / P) lanes, rounded up to
+    whole warps when the pair is split and to whole runs of a thread; None
+    when that is over 1024 threads of the longest run."""
+    per = -(-L // P)
+    if P > 1:
+        per = -(-per // 32) * 32
+    for run in _RUNS:
+        if -(-per // run) <= MAX_THREADS:
+            return -(-per // run) * run
+    return None
+
+
+def fill_plan(B: int, L: int, sms: int):
+    """(S, run): the lanes of a segment and the lanes of a thread for B
+    pairs of L lanes on a card of ``sms`` SMs. A pair takes
+    P = ceil(L / S) CTAs, one a segment. A pair that one CTA runs at one
+    lane a thread (L <= 1024), and with B >= sms any pair that fits a
+    block (the grids), keeps one CTA: a boundary's hand-off lags about two
+    chunks of diagonals, too much of a short pair's. Longer pairs, fewer
+    than ``sms``, take the most segments that keep one CTA an SM and S at
+    or above ``SEG_FLOOR``. A pair too long for one block takes as many
+    segments as it needs to fit."""
+    P = 1
+    if L > MAX_THREADS:
+        P = max(1, min(sms // B, L // SEG_FLOOR))
+    while True:
+        S = _segment(L, P)
+        if S is not None and fill_smem_bytes(S) <= SMEM_LIMIT:
+            return S, _lanes_per_thread(S)
+        P += 1
 
 
 def _check(name, tensor, dtype, shape, device):
@@ -136,39 +186,66 @@ def _check_fill(what, t, o, params):
     if o.shape[0] not in (1, B) or params.shape[0] not in (1, B):
         raise ValueError(f"{what}: o and params need 1 or {B} rows, got "
                          f"{o.shape[0]} and {params.shape[0]}")
-    run = lanes_per_thread(L)
-    if fill_smem_bytes(L) > SMEM_LIMIT:
-        raise ValueError(f"{what}: L={L} needs {fill_smem_bytes(L)} bytes of "
-                         f"shared memory, over the {SMEM_LIMIT} a block has")
-    return B, L, NoP, run
+    return B, L, NoP
 
 
-def fill_cuda(t, o, params):
+def _plan(what, t, B, L, seg, run):
+    """(S, run) of a launch: :func:`fill_plan` on the tensor's card unless
+    ``seg`` (lanes a segment) or ``run`` (lanes a thread) is forced."""
+    if seg is None:
+        sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+        seg = fill_plan(B, L, sms)[0]
+    run = _lanes_per_thread(seg) if run is None else run
+    if run not in _RUNS or seg % run or seg // run > MAX_THREADS:
+        raise ValueError(f"{what}: no CTA of {seg} lanes at {run} a thread")
+    need = fill_smem_bytes(seg, run)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{what}: a segment of {seg} lanes needs {need} "
+                         f"bytes of shared memory, over the {SMEM_LIMIT} a "
+                         f"block has")
+    return seg, run
+
+
+def fill_cuda(t, o, params, seg=None, run=None):
     """Launch ``ta_nw_fill`` (one pair, B = 1) on PyTorch's current
-    stream."""
-    B, L, NoP, run = _check_fill("nw_fill", t, o, params)
+    stream, in segments of ``seg`` lanes, ``run`` lanes a thread (default:
+    :func:`fill_plan`)."""
+    B, L, NoP = _check_fill("nw_fill", t, o, params)
     if B != 1 or o.shape[0] != 1 or params.shape[0] != 1:
         raise ValueError("nw_fill takes one pair; use fill_batched for more")
+    seg, run = _plan("nw_fill", t, B, L, seg, run)
+    lib = _kernels.lib()
+    # the hand-off scratch stays referenced until the C call has returned:
+    # ctypes releases the GIL, and a freed block may go to another thread
+    # issuing on the same stream
+    scratch = torch.empty(lib.ta_nw_fill_scratch_bytes(B, L, NoP, seg),
+                          dtype=torch.uint8, device=t.device)
     out = torch.empty((1, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
-    code = _kernels.lib().ta_nw_fill(
+    code = lib.ta_nw_fill(
         t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), L, NoP,
-        run, t.device.index, _kernels.stream_handle(t.device))
+        run, t.device.index, _kernels.stream_handle(t.device), seg,
+        scratch.data_ptr())
     _kernels.check(code, "nw_fill launch")
     _kernels.launches["nw_fill"] += 1
     return out
 
 
-def fill_batched_cuda(t, o, params):
+def fill_batched_cuda(t, o, params, seg=None, run=None):
     """Launch ``ta_nw_fill_batched``: one OCR row shared by every pair
     (``shared_feed``) when ``o`` has one row, one scoring row per pair
-    (``per_pair``) when ``params`` has B rows."""
-    B, L, NoP, run = _check_fill("nw_fill_batched", t, o, params)
+    (``per_pair``) when ``params`` has B rows; segments of ``seg`` lanes,
+    ``run`` lanes a thread (default: :func:`fill_plan`)."""
+    B, L, NoP = _check_fill("nw_fill_batched", t, o, params)
+    seg, run = _plan("nw_fill_batched", t, B, L, seg, run)
+    lib = _kernels.lib()
+    scratch = torch.empty(lib.ta_nw_fill_scratch_bytes(B, L, NoP, seg),
+                          dtype=torch.uint8, device=t.device)  # held, as above
     out = torch.empty((B, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
-    code = _kernels.lib().ta_nw_fill_batched(
+    code = lib.ta_nw_fill_batched(
         t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), B, L,
         NoP, run, int(params.shape[0] == B and B > 1),
         int(o.shape[0] == 1), t.device.index,
-        _kernels.stream_handle(t.device))
+        _kernels.stream_handle(t.device), seg, scratch.data_ptr())
     _kernels.check(code, "nw_fill_batched launch")
     _kernels.launches["nw_fill_batched"] += 1
     return out

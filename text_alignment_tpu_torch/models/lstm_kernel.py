@@ -17,7 +17,10 @@ of ``lstm_jax._bidir_scan``. Returns h for every step, (2, T, B, ns).
 The kernel's launch plan (:func:`launch_plan`) is a batch tile ``bt``: the
 grid is 2 directions x ceil(B / bt) CTAs, each four lanes per hidden unit,
 every lane holding one column of Wh in registers and what does not fit in
-shared memory (:func:`kernel_attrs` reports how much).
+shared memory (:func:`kernel_attrs` reports how much). Past ns = 128 the
+wide route takes over: a CTA of at most 1024 threads walks ceil(ns / 256)
+unit groups a step, and the quads of a column past its registers and its
+shared slot are read from global memory each step.
 """
 
 from __future__ import annotations
@@ -27,11 +30,15 @@ import ctypes
 import torch
 
 from .. import _kernels
+from .._kernels import SMEM_LIMIT
 
 # The kernel's instantiations, as listed at its dispatch: NQ (ns / 4 rounded
 # up to one of these, so ns <= 128) -> the batch tiles BT it is built for,
 # those whose Wh quads past the registers fit a block's shared memory.
 TILES = {25: (1, 2, 4, 8), 32: (1, 2, 4)}
+# The wide route's batch tiles (ns > 128, NQ = ceil(ns / 4)); a tile needs
+# its h and c buffers, 12 * BT * 4 * NQ bytes, in one block.
+WIDE_TILES = (1, 2, 4)
 
 
 def bidir_scan_reference(gx, whT, peep):
@@ -64,12 +71,25 @@ def bidir_scan_reference(gx, whT, peep):
 
 def quads(ns: int) -> int:
     """NQ: the kernel instantiation for ns (its Wh column of 4 * NQ
-    floats, zero padded past ns). Raises for ns over 128."""
+    floats, zero padded past ns); past ns = 128 the wide route's
+    ceil(ns / 4)."""
     for nq in TILES:
         if 4 * nq >= ns:
             return nq
-    raise ValueError(f"lstm_scan: ns={ns} is over the {4 * max(TILES)} "
-                     f"hidden units one thread's column can hold")
+    return -(-ns // 4)
+
+
+def tiles(ns: int) -> tuple:
+    """The batch tiles the kernel takes at ns. Raises past the widest ns
+    whose h and c buffers fit a block (19,368 at bt = 1)."""
+    nq = quads(ns)
+    if nq in TILES:
+        return TILES[nq]
+    fit = tuple(bt for bt in WIDE_TILES if 48 * bt * nq <= SMEM_LIMIT)
+    if not fit:
+        raise ValueError(f"lstm_scan: ns={ns}: the h and c buffers of one "
+                         f"batch row are over a block's shared memory")
+    return fit
 
 
 def launch_plan(B: int, ns: int, sms: int) -> int:
@@ -77,24 +97,26 @@ def launch_plan(B: int, ns: int, sms: int) -> int:
     whose grid of 2 * ceil(B / bt) CTAs fits one wave on ``sms`` SMs, or
     past the largest batch one wave holds, the largest tile (more waves).
     A smaller tile keeps more of each thread's Wh column in registers."""
-    tiles = TILES[quads(ns)]
-    for bt in tiles:
+    ts = tiles(ns)
+    for bt in ts:
         if 2 * -(-B // bt) <= sms:
             return bt
-    return tiles[-1]
+    return ts[-1]
 
 
 def kernel_attrs(ns: int, bt: int, device) -> dict:
     """What the compiler made of the (quads(ns), bt) instantiation (on the
     card): registers and spill bytes per thread, threads per CTA at ns and
     the instantiation's thread limit, Wh quads in registers, shared bytes
-    per CTA."""
-    vals = (ctypes.c_int * 6)()
+    per CTA, and the quads of a column read from global memory each step
+    (the wide route's third tier; 0 at ns <= 128)."""
+    vals = (ctypes.c_int * 7)()
     code = _kernels.lib().ta_lstm_scan_attrs(
         quads(ns), bt, ns, torch.device(device).index or 0, vals)
     _kernels.check(code, "lstm_scan attributes")
     return dict(zip(("regs", "local_bytes", "threads", "max_threads",
-                     "quads_in_registers", "shared_bytes"), vals))
+                     "quads_in_registers", "shared_bytes", "quads_in_global"),
+                    vals))
 
 
 def bidir_scan_cuda(gx, whT, peep, bt=None):
@@ -117,9 +139,9 @@ def bidir_scan_cuda(gx, whT, peep, bt=None):
     if bt is None:
         bt = launch_plan(B, ns, torch.cuda.get_device_properties(
             gx.device).multi_processor_count)
-    if bt not in TILES[nq]:
+    if bt not in tiles(ns):
         raise ValueError(f"lstm_scan: no instantiation of bt={bt} at "
-                         f"ns={ns}: tiles {TILES[nq]}")
+                         f"ns={ns}: tiles {tiles(ns)}")
     out = torch.empty((2, T, B, ns), dtype=torch.float32, device=gx.device)
     L = _kernels.lib()
     code = L.ta_lstm_scan(gx.data_ptr(), whT.data_ptr(), peep.data_ptr(),
