@@ -1,6 +1,7 @@
 """Smoke run of text_alignment_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --profile    # only the launch profiles (below)
 
 Phases, each printing one line (any failure exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
@@ -62,7 +63,9 @@ Phases, each printing one line (any failure exits non-zero):
      the sequential process() on the card; in (b) no host fallback and
      cc_clean and cc_table launched >= 8 times each; one more page with a
      lowered run capacity falls back and keeps its JSON; ms per folio of
-     (a), (b) and the sequential calls, with the stage split;
+     (a), (b) and the sequential calls, with the stage split and the time
+     in Python's garbage collector; one more (b) call under torch.profiler:
+     its device-busy share and longest idle gaps;
   14. the full-chain normalizer kernel (lineest_full) against its plain
      version on the card, bit for bit (center, dsum, dcnt), on the phase-5
      folio's packed strips and on >= 64 strips of nine 1600 x 1300 pages
@@ -82,13 +85,24 @@ Phases, each printing one line (any failure exits non-zero):
      once and process_job never (no one-job retry), lineest_full launched
      >= 8 times in the one-at-a-time drain, all 16 outputs byte-identical
      to process()'s JSON under the same setting; the warm-up's ms, the
-     drain's ms per job and its split by route.
+     drain's ms per job and its split by route;
+  17. the launch profiles (--profile, below) in a child process: the
+     device time of each launch of one CC pass, the chain, the table and
+     the full chain, and at most 4 launches a CC pass and the table, 13 for
+     the chain and 4 for the full chain.
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
 kernels, phase 16's one-at-a-time drain for lineest_full), error, times and
 bound, and last the device JSON line. Weights and pages are made from fixed
 seeds. Needs no network and no JAX.
+
+With --profile it runs phases 1 and 2, then only the launch profiles of
+the CC kernels (phase 11's pages) and the full chain (phase 14's folio
+strips) and the device timeline of one process_batch call in mode (b)
+(with its garbage-collector time), and prints last one JSON line of the
+launch counts; it needs only the package's entry points, so it profiles
+an older tree of the port from a copy placed in that tree.
 
 bound_ms is the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -100,6 +114,7 @@ a floor.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -152,6 +167,8 @@ DEFAULT_ROW = [8, -4, -7, -7, -3, 0, -1, -1]  # the reference's default
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM, published
 ALU_OPS_PER_MS = 67e12 / 1e3      # float32 outside the tensor cores
 N_FOLIOS = 8
+CC_PASS_LAUNCHES = 4  # launches of one CC filter pass or table, at most
+FULL_LAUNCHES = 4     # launches of one full-chain call
 
 
 class PhaseError(RuntimeError):
@@ -808,6 +825,160 @@ def cc_ops(H: int, Wq: int, n_runs: int) -> int:
     return 24 * H * Wq + 40 * n_runs
 
 
+def masked_eroded(dev, pk, H: int, W: int):
+    """A binarized packed page through program A (the cleanup chain, the
+    skew search, the rotation and the erosion), its separator rows masked
+    out as program B masks them: (eroded bool page, its packed words, the
+    separator count). cc_table's input on the batch path."""
+    p = PreprocParams()
+    _, eroded, wire = rd.raster_program_a(pk, H, W, p.despeckle_amt,
+                                          p.sat_area_thresh)
+    wire = wire.cpu().numpy()
+    angle = sd.angle_from_indices(*wire[-4:-1].tolist())
+    H2, _ = rd.exact_canvas(H, W, angle)
+    _, sep_rows, _ = _peaks_and_separators(wire[:-4][:H2].astype(np.int64),
+                                           p)
+    mask = torch.zeros(eroded.shape[0], dtype=torch.bool, device=dev)
+    for r in sep_rows:
+        mask[r: r + 2] = True
+    er = eroded & ~mask[:, None]
+    return er, rd.pack_bool(er), len(sep_rows)
+
+
+def device_events(fn, repeat: int = 3):
+    """``fn`` ``repeat`` times under torch.profiler, after a warm-up call,
+    each call after a spin kernel of ~1 ms: the card's events (kernels,
+    memsets, copies) of each call in start order as (name, start us, end
+    us), and the last call's host-clock ms. A call's events are those
+    between two spins, or, where the profiler lost a spin's record, those
+    on either side of the gap over 0.5 ms that the spin left. The profiler
+    also lost a call's own events now and then (one to three, late in a
+    process that had profiled before), so a count is the largest of the
+    calls'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(2_000_000)
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e[1])
+    calls, cur, last_end = [], [], None
+    for name, start, end in events:
+        if "spin" in name or (last_end is not None
+                              and start - last_end > 500.0):
+            if cur:
+                calls.append(cur)
+            cur = []
+        if "spin" not in name:
+            cur.append((name, start, end))
+        last_end = end if last_end is None else max(last_end, end)
+    if cur:
+        calls.append(cur)
+    return calls, wall
+
+
+def launch_split(what: str, fn) -> int:
+    """Print the device time of each launch of one call of ``fn`` in
+    order (kernels and memsets), their sum and the span from the first
+    start to the last end, for the profiled call with the most events;
+    return its number of launches."""
+    calls, _ = device_events(fn)
+    check(bool(calls), f"{what}: the profiler saw no device event")
+    events = max(calls, key=len)
+    split = ", ".join(f"{n} {e - s:.1f}" for n, s, e in events)
+    busy = sum(e - s for _, s, e in events)
+    span = events[-1][2] - events[0][1]
+    kernels = sum(name.startswith("ta_") for name, _, _ in events)
+    print(f"launch split {what}: {len(events)} launches ({kernels} of the "
+          f"port's kernels), device us [{split}]; sum {busy:.1f} us, span "
+          f"{span:.1f} us; launches of the {len(calls)} profiled calls "
+          f"{[len(c) for c in calls]}")
+    return len(events)
+
+
+def idle_gaps(what: str, fn, n_gaps: int = 5) -> None:
+    """Print the device-busy share of one call of ``fn`` (the union of its
+    device events over the host-clock wall) and its longest idle gaps,
+    each with the events before and after it."""
+    calls, wall = device_events(fn, repeat=1)
+    events = sorted((e for c in calls for e in c), key=lambda e: e[1])
+    if not events:
+        print(f"device timeline {what}: the profiler saw no device event "
+              f"(not measured)")
+        return
+    busy, gaps = 0.0, []
+    cur_name, cur_s, cur_e = events[0]
+    for name, s, e in events[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            gaps.append((s - cur_e, cur_name, name))
+            cur_s = s
+        if e >= cur_e:
+            cur_name, cur_e = name, e
+    busy += cur_e - cur_s
+    gaps.sort(reverse=True)
+    top = "; ".join(f"{g / 1e3:.3f} ms after {a[:40]} before {b[:40]}"
+                    for g, a, b in gaps[:n_gaps])
+    print(f"device timeline {what}: wall {wall:.1f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({100 * busy / 1e3 / wall:.1f}%), "
+          f"{len(events)} events, first at {events[0][1] / 1e3:.3f} ms, "
+          f"last ends at {events[-1][2] / 1e3:.3f} ms; idle gaps "
+          f"{sum(g for g, _, _ in gaps) / 1e3:.3f} ms in {len(gaps)}, "
+          f"longest: {top}")
+
+
+class GCWatch:
+    """The collections of Python's cyclic garbage collector inside a with
+    block, in any thread: count and host-clock ms by generation, and the
+    objects it tracks at the end."""
+
+    def __enter__(self):
+        self.n, self.ms, self._t0 = [0, 0, 0], [0.0, 0.0, 0.0], None
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            g = info["generation"]
+            self.n[g] += 1
+            self.ms[g] += (time.perf_counter() - self._t0) * 1e3
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+        self.tracked = len(gc.get_objects())
+
+    def __str__(self):
+        by_gen = ", ".join(f"{m:.1f}" for m in self.ms)
+        return (f"gc: collections by generation {self.n}, "
+                f"{sum(self.ms):.1f} ms ({by_gen}), {self.tracked} objects "
+                f"tracked")
+
+
+def profile_cc(pk, H: int, W: int, pke, He: int, We: int) -> dict:
+    """The launches of one CC filter pass, the chain and the table on
+    phase 11's pages, each with its device time; returns their counts."""
+    p = PreprocParams()
+    damt, sat, thr = p.despeckle_amt, p.sat_area_thresh, p.noise_area_thresh
+    return {"cc_filter": launch_split("cc_filter", lambda: cc.cc_filter(
+                pk, H, W, damt, cc.MODE_BLACK)),
+            "cc_clean": launch_split("cc_clean", lambda: cc.cc_clean(
+                pk, H, W, damt, sat)),
+            "cc_table": launch_split("cc_table", lambda: cc.cc_table(
+                pke, He, We, thr, device_raster._MAX_CCS))}
+
+
 def phase_cc(dev, page, big_page):
     """Phase 11: the three CC kernels against their plain versions on the
     card and against the host oracle, on a batch folio's binarized page
@@ -871,17 +1042,7 @@ def phase_cc(dev, page, big_page):
     _, c_plain = timed_once(lambda: cc.clean_reference(
         pk, H, W, damt, sat, False, cc.MAX_RUNS))
 
-    bin_rot, eroded, wire = rd.raster_program_a(pk, H, W, damt, sat)
-    wire = wire.cpu().numpy()
-    angle = sd.angle_from_indices(*wire[-4:-1].tolist())
-    H2, _ = rd.exact_canvas(H, W, angle)
-    _, sep_rows, _ = _peaks_and_separators(wire[:-4][:H2].astype(np.int64),
-                                           p)
-    mask = torch.zeros(eroded.shape[0], dtype=torch.bool, device=dev)
-    for r in sep_rows:
-        mask[r: r + 2] = True
-    er = eroded & ~mask[:, None]
-    pke = rd.pack_bool(er)
+    er, pke, n_seps = masked_eroded(dev, pk, H, W)
     He, We = er.shape
     thr = p.noise_area_thresh
     tab, okt = cc.cc_table(pke, He, We, thr, device_raster._MAX_CCS)
@@ -904,7 +1065,7 @@ def phase_cc(dev, page, big_page):
     print(f"cc_clean: chain despeckle {damt} / white {damt} / tall {sat} "
           f"identical to the plain version and the oracle; kernel "
           f"{c_ms:.3f} ms plain {c_plain:.3f} ms")
-    print(f"cc_table: eroded page {He} x {We} with {len(sep_rows)} "
+    print(f"cc_table: eroded page {He} x {We} with {n_seps} "
           f"separators, {n_er} runs, {count} components of area > {thr}, "
           f"identical to the plain version and the oracle; kernel "
           f"{t_ms:.3f} ms plain {t_plain:.3f} ms")
@@ -979,8 +1140,9 @@ def phase_batch(path, dev):
             fb = device_raster.fallbacks
             timer = stage_timer(enabled=True)
             _kernels.reset_launches()
-            res, ms = wall_ms(lambda: process_batch(
-                folios, rec, backend="hybrid", timer=timer, device=dev))
+            with GCWatch() as gcw:
+                res, ms = wall_ms(lambda: process_batch(
+                    folios, rec, backend="hybrid", timer=timer, device=dev))
             run_launches = dict(_kernels.launches)
             same = batch_json(res) == seq
             print(f"batch ({'a' if mode == 'host' else 'b'}) raster {mode}: "
@@ -989,7 +1151,8 @@ def phase_batch(path, dev):
                   f"sequential process() {seq_ms:.1f} ms per folio, "
                   f"stages {per_folio(seq_timer, N_FOLIOS)}; JSON "
                   f"identical {same}; fallbacks "
-                  f"{device_raster.fallbacks - fb}; launches {run_launches}")
+                  f"{device_raster.fallbacks - fb}; launches {run_launches}; "
+                  f"{gcw}")
             check(same, f"process_batch (raster {mode}) differs from the "
                   f"sequential process()")
             if mode == "device":
@@ -999,6 +1162,8 @@ def phase_batch(path, dev):
                     check(run_launches[name] >= N_FOLIOS,
                           f"{name} launched {run_launches[name]} times")
                 launches = run_launches
+                idle_gaps("batch (b)", lambda: process_batch(
+                    folios, rec, backend="hybrid", device=dev))
         # one more page on a lowered run capacity: it must fall back
         saved, fb = cc.MAX_RUNS, device_raster.fallbacks
         cc.MAX_RUNS = 5000
@@ -1274,11 +1439,89 @@ def phase_serve(pages, path, dev, workdir):
     return launches
 
 
-def main() -> int:
+def profile_only(dev) -> int:
+    """``--profile``: the device time of each launch of the CC kernels
+    (phase 11's pages) and of the full chain (phase 14's folio strips), and
+    the device timeline of one process_batch call in mode (b) (phase 13's
+    folios), with no other phase before them. Runs against any tree whose
+    package has the same entry points."""
+    big = make_batch_folio(3000)
+    packed, (H, W) = device_raster._binarize_pack(big.image)
+    pk = torch.from_numpy(packed).to(dev)
+    er, pke, _ = masked_eroded(dev, pk, H, W)
+    launches = profile_cc(pk, H, W, pke, *er.shape)
+
+    page = make_folio()
+    image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+    strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
+    codec = Codec()
+    params_np = peaky_params(0, len(codec))
+    rec = SeqRecognizer(tl.params_from_np(params_np), codec,
+                        normalize_on_device=True, device=dev)
+    fi = folio_inputs(rec, [s.img for s in strips], dev)
+    args, _ = full_inputs(fi["packed_meta"], dev)
+    launches["lineest_full"] = launch_split(
+        "lineest_full", lambda: center_full_cuda(*args))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "folio.pyrnn.gz")
+        save_pyrnn(path, params_np, codec)
+        folios = [(pg.image, pg.transcript) for pg in
+                  (make_batch_folio(3000 + k) for k in range(N_FOLIOS))]
+        brec = _resolve_recognizer(path, "hybrid", dev)
+        env = os.environ.get("TEXT_ALIGNMENT_TPU_RASTER")
+        os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = "device"
+        try:
+            process_batch(folios[:2], brec, backend="hybrid", device=dev)
+            with GCWatch() as gcw:
+                _, ms = wall_ms(lambda: process_batch(
+                    folios, brec, backend="hybrid", device=dev))
+            print(f"batch (b) alone: {ms / N_FOLIOS:.1f} ms per folio; {gcw}")
+            idle_gaps("batch (b) alone", lambda: process_batch(
+                folios, brec, backend="hybrid", device=dev))
+        finally:
+            restore_env("TEXT_ALIGNMENT_TPU_RASTER", env)
+    print(json.dumps({"profile_launches": launches}))
+    return 0
+
+
+def phase_profile():
+    """Phase 17: ``--profile`` in a child process (in this process, after
+    earlier profiler windows, the profiler lost whole windows of events):
+    its lines, and at most CC_PASS_LAUNCHES launches a CC pass and table,
+    3 CC_PASS_LAUNCHES + 1 for the chain, FULL_LAUNCHES for the full
+    chain (a lost event can only lower a count)."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile"],
+        capture_output=True, text=True, timeout=400,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = child.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("launch split", "device timeline", "batch (b)")):
+            print(f"profile: {line}")
+    check(child.returncode == 0 and lines and
+          lines[-1].startswith('{"profile_launches"'),
+          f"chip_smoke.py --profile failed ({child.returncode}): "
+          f"{child.stderr[-2000:]}")
+    n = json.loads(lines[-1])["profile_launches"]
+    check(n["cc_filter"] <= CC_PASS_LAUNCHES
+          and n["cc_table"] <= CC_PASS_LAUNCHES
+          and n["cc_clean"] <= 3 * CC_PASS_LAUNCHES + 1
+          and 1 <= n["lineest_full"] <= FULL_LAUNCHES,
+          f"launches over the limits: {n}")
+    print(f"profile: launches a call {n} (limits: {CC_PASS_LAUNCHES} a CC "
+          f"pass and table, {3 * CC_PASS_LAUNCHES + 1} the chain, "
+          f"{FULL_LAUNCHES} the full chain)")
+
+
+def main(argv) -> int:
     phase_card()
     phase_build()
     tl.pin_float32()
     dev = torch.device("cuda")
+    if argv == ["--profile"]:
+        return profile_only(dev)
+    check(not argv, f"unknown arguments {argv} (only --profile)")
     page = make_folio()
     image, eroded, _ = preprocess_images(page.image, backend="hybrid")
     strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
@@ -1328,6 +1571,7 @@ def main() -> int:
     serve_launches = phase_serve(batch_pages, path, dev, tmp.name)
     launches["lineest_full"] = serve_launches["lineest_full"]
     tmp.cleanup()
+    phase_profile()
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"
     cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"
@@ -1361,7 +1605,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except PhaseError as e:
         print(f"FAILED: {e}", file=sys.stderr)
         sys.exit(1)

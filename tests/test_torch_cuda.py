@@ -109,11 +109,19 @@ def test_lineest_tail_kernel_matches_plain(cuda, B, Hp, Wp):
     assert (d == 0).float().mean().item() >= 0.99
 
 
-def _full_inputs(dev, B, Hp, Wp, seed):
+def _full_inputs(dev, B, Hp, Wp, seed, size=None):
+    """Strips of random (h, w) and a last padding strip (h = w = 0); with
+    ``size="full"`` every strip fills the batch (h = Hp, w = Wp), with
+    ``"narrow"`` the strips are 1 to 40 columns wide."""
     rng = np.random.default_rng(seed)
     hs = rng.integers(Hp // 2, Hp + 1, B).astype(np.int32)
     ws = rng.integers(Wp // 8, Wp + 1, B).astype(np.int32)
-    hs[-1] = ws[-1] = 0  # a padding strip of the pack ladder
+    if size == "full":
+        hs[:], ws[:] = Hp, Wp
+    else:
+        if size == "narrow":
+            ws = rng.integers(1, 41, B).astype(np.int32)
+        hs[-1] = ws[-1] = 0  # a padding strip of the pack ladder
     grey = (rng.random((B, Hp, Wp)) > 0.12).astype(np.uint8)
     hs_t, ws_t = torch.from_numpy(hs).to(dev), torch.from_numpy(ws).to(dev)
     _, _, _, _, temp, k2 = tle.center_inputs(
@@ -122,10 +130,16 @@ def _full_inputs(dev, B, Hp, Wp, seed):
             tle.hgauss_taps(hs_t, Hp).contiguous(), hs_t, ws_t, k2)
 
 
-@pytest.mark.parametrize("B,Hp,Wp", [(12, 96, 1536), (5, 32, 256),
-                                     (3, 128, 1000)])
-def test_lineest_full_kernel_matches_plain_bit_for_bit(cuda, B, Hp, Wp):
-    args = _full_inputs(cuda, B, Hp, Wp, Hp + Wp)
+@pytest.mark.parametrize("B,Hp,Wp,size", [
+    (12, 96, 1536, None), (5, 32, 256, None), (3, 128, 1000, None),
+    (4, 64, 512, "full"),      # every strip h = Hp, w = Wp
+    (6, 96, 1536, "narrow"),   # w of 1 to 40 columns
+    (1, 96, 1536, None),       # B = 1: the one strip is padding
+    (1, 48, 700, "full"),      # B = 1, h = Hp, w = Wp
+])
+def test_lineest_full_kernel_matches_plain_bit_for_bit(cuda, B, Hp, Wp,
+                                                       size):
+    args = _full_inputs(cuda, B, Hp, Wp, Hp + Wp, size)
     before = _kernels.launches["lineest_full"]
     got = center_full(*args)
     assert _kernels.launches["lineest_full"] == before + 1
@@ -145,8 +159,8 @@ def test_lineest_full_rejects_bad_inputs(cuda):
     bad[2] = args[2][:, :-1].contiguous()  # an even tap count
     with pytest.raises(ValueError):
         center_full_cuda(*bad)
-    # Hp = 256: the (Hp, Hp) v-gauss bank alone exceeds shared memory
-    big = _full_inputs(cuda, 2, 256, 256, 2)
+    # Wp = 60,000: the tail's row of Wp floats exceeds shared memory
+    big = _full_inputs(cuda, 2, 32, 60000, 2)
     with pytest.raises(ValueError):
         center_full_cuda(*big)
 
@@ -313,6 +327,19 @@ def test_nw_wrappers_reject_bad_inputs(cuda):
         nw_kernel.traceback_batched(packed, nts.long(), nos)
 
 
+def _stroke(H, W):
+    """One tall stroke through every band, a staircase diagonal (whose
+    bands meet only through 8-connectivity) and a comb whose teeth, each
+    rooted in the first band, join only in the last row."""
+    img = np.zeros((H, W), bool)
+    img[:, W // 2:W // 2 + 3] = True
+    y = np.arange(H)
+    img[y, (y * 7 // 5) % (W // 3)] = True
+    img[:, W - 60:W - 2:6] = True
+    img[-1, W - 60:W - 2] = True
+    return img
+
+
 def _cc_pages():
     rng = np.random.default_rng(21)
     bars = np.zeros((300, 1000), bool)
@@ -320,7 +347,24 @@ def _cc_pages():
     bars[150, :] = True
     return {"random30": rng.random((257, 999)) < 0.3,
             "random60": rng.random((64, 96)) < 0.6,
-            "bars": bars, "empty": np.zeros((40, 33), bool)}
+            "bars": bars, "empty": np.zeros((40, 33), bool),
+            "one_row": rng.random((1, 999)) < 0.4,
+            "short": rng.random((5, 300)) < 0.4,         # H below one band
+            # > 4096 runs a band: the band works in device memory
+            "dense": rng.random((24, 6000)) < 0.5,
+            **{f"stroke{H}": _stroke(H, 400) for H in (300, 2000, 5000, 9000)}}
+
+
+def test_cc_pages_cover_several_band_heights(cuda):
+    """The pages of the next test give the band kernel heights of 8 to 64
+    rows, bands that do not divide H, and pages of fewer rows than one
+    band."""
+    band = {name: _kernels.lib().ta_cc_band_rows(img.shape[0])
+            for name, img in _cc_pages().items()}
+    assert len(set(band.values())) >= 4
+    assert band["stroke300"] == 8 and band["stroke9000"] == 64
+    assert 300 % band["stroke300"] and 5000 % band["stroke5000"] == 0
+    assert band["short"] > 5 and band["one_row"] > 1
 
 
 @pytest.mark.parametrize("name", list(_cc_pages()))

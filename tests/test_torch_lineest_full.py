@@ -175,3 +175,79 @@ def test_recognizer_full_route_passes_the_reference_gate(monkeypatch):
             n_same += 1
     assert int(wa[:len(strips), 0].sum()) > 0  # the weights decode something
     assert n_same >= 0.95 * len(strips), (n_same, len(strips))
+
+
+def _vh_inside(temp, w0, k1, hs, ws):
+    """The fused pass of csrc/lineest_full.cu on the CPU: for each strip
+    only rows i < h and columns p < w, the v-gauss over rows j < h alone and
+    the h-gauss over the taps that reach columns [0, w) among the strip's
+    nonzero taps, each output skipping (not adding) the rest; NaN outside
+    (h, w), where the kernel leaves rows unwritten."""
+    B, Hp, Wp = temp.shape
+    r = k1.shape[1] // 2
+    sm = torch.full((B, Hp, Wp), float("nan"))
+    for b in range(B):
+        h, w = int(hs[b]), int(ws[b])
+        if h == 0 or w == 0:
+            continue
+        ink = (temp[b, :h, :w] != 0).to(torch.float32)
+        sm1 = torch.zeros((h, w))
+        for j in range(h):
+            sm1 = sm1 + w0[b, :h, j:j + 1] * ink[j:j + 1, :]
+        nz = torch.nonzero(k1[b] != 0).flatten()
+        lo, hi = int(nz.min()), int(nz.max())
+        xp = torch.nn.functional.pad(sm1, (r, r))
+        p = torch.arange(w)
+        acc = torch.zeros((h, w))
+        for t in range(lo, hi + 1):
+            reach = (t >= r - p) & (t <= r - p + w - 1)
+            acc = torch.where(reach, acc + xp[:, t:t + w] * k1[b, t], acc)
+        sm[b, :h, :w] = acc
+    return sm
+
+
+@pytest.mark.parametrize("seed", [30, 34])
+def test_full_kernel_skips_only_exact_zeros_and_unread_cells(seed):
+    """On the padded batch the recognizer builds from a page's strips: the
+    ink mask is zero outside each strip's (h, w); the sums the full kernel
+    skips (rows j >= h, taps that reach no column below w) are exact zeros,
+    so its sm equals the plain version's inside (h, w) bit for bit; and the
+    tail never reads sm outside (h, w): center, dsum and dcnt are the same
+    with NaN or huge values there."""
+    from text_alignment_tpu_torch.models.lineest_kernel import (
+        hgauss_reference, tail_reference, vgauss_reference)
+    from text_alignment_tpu_torch.models.recognizer import _unpack_bits
+
+    page = make_page(np.random.default_rng(seed), n_lines=4,
+                     words_per_line=2, H=800, W=700, char_h=50, char_w=30,
+                     gap=6, space_w=40, line_spacing=150, speckles=30,
+                     margin_x=30, angle=0.4)
+    image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+    ls, _, _ = identify_text_lines(image, eroded, backend="hybrid",
+                                   verbose=False)
+    codec = Codec()
+    rec = SeqRecognizer(tl.params_from_np(_peaky(0, len(codec))), codec,
+                        normalize_on_device=True, device="cpu")
+    packed_meta = rec._pack_strips([np.asarray(s.img) for s in ls])[0]
+    grey, hs, ws = _unpack_bits(torch.from_numpy(packed_meta))
+    B, Hp, Wp = grey.shape
+    temp = (tle._front(grey, hs, ws, True)[3] != 0).to(torch.uint8)
+    w0, k1 = tle.vgauss_bank(hs, Hp), tle.hgauss_taps(hs, Hp)
+    k2 = torch.from_numpy(tle.smoothing_taps(hs.numpy(), Hp))
+    inside = ((torch.arange(Hp)[None, :, None] < hs[:, None, None])
+              & (torch.arange(Wp)[None, None, :] < ws[:, None, None]))
+    assert (hs < Hp).any() and (ws < Wp).any() and temp.any()
+    assert not temp[~inside].any()
+
+    sm = hgauss_reference(vgauss_reference(temp, w0), k1)
+    fused = _vh_inside(temp, w0, k1, hs, ws)
+    assert torch.equal(fused[inside], sm[inside])
+    assert sm[~inside].abs().max() > 0  # the skipped cells are not zeros
+
+    want = tail_reference(sm, temp, hs, ws, k2)
+    rng = np.random.default_rng(seed)
+    for fill in (fused, torch.where(inside, sm, torch.from_numpy(
+            rng.uniform(-1e6, 1e6, sm.shape).astype(np.float32)))):
+        got = tail_reference(fill, temp, hs, ws, k2)
+        for g, r in zip(got, want):
+            assert torch.equal(g, r)

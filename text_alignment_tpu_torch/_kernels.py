@@ -150,6 +150,8 @@ def lib():
                                          i, p]
         L.ta_nw_traceback_batched.restype = i
         L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
+        L.ta_cc_band_rows.restype = i
+        L.ta_cc_band_rows.argtypes = [i]
         L.ta_cc_scratch_ints.restype = ctypes.c_size_t
         L.ta_cc_scratch_ints.argtypes = [i, i]
         L.ta_cc_filter.restype = i

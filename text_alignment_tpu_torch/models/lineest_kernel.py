@@ -237,7 +237,12 @@ def center_full_reference(temp, w0, k1, hs, ws, k2):
 
 
 def center_full_cuda(temp, w0, k1, hs, ws, k2):
-    """Launch ``csrc/lineest_full.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/lineest_full.cu`` on PyTorch's current stream.
+
+    The kernel computes the h-gauss output only inside each strip's (h, w)
+    and sums only the rows j < h of the v-gauss: exact where ``temp`` is
+    zero outside each strip's (h, w), as on every batch the normalizer
+    builds (``lineest._front`` masks it)."""
     B, Hp, Wp = temp.shape
     K1 = k1.shape[1] if k1.ndim == 2 else -1
     K2 = k2.shape[1] if k2.ndim == 2 else -1
@@ -266,14 +271,14 @@ def center_full_cuda(temp, w0, k1, hs, ws, k2):
             f"lineest_full: (Hp, Wp, K1, K2) = ({Hp}, {Wp}, {K1}, {K2}) "
             f"needs {smem} bytes of shared memory, over what one block can "
             f"use")
-    sm1 = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
     sm = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
     center = torch.empty((B, Wp), dtype=torch.int32, device=dev)
     dsum = torch.empty((B,), dtype=torch.int32, device=dev)
     dcnt = torch.empty((B,), dtype=torch.int32, device=dev)
     code = L.ta_lineest_full(
         temp.data_ptr(), w0.data_ptr(), k1.data_ptr(), hs.data_ptr(),
-        ws.data_ptr(), k2.data_ptr(), B, Hp, Wp, K1, K2, sm1.data_ptr(),
+        ws.data_ptr(), k2.data_ptr(), B, Hp, Wp, K1, K2, scratch.data_ptr(),
         sm.data_ptr(), center.data_ptr(), dsum.data_ptr(), dcnt.data_ptr(),
         dev.index, _kernels.stream_handle(dev))
     _kernels.check(code, "lineest_full launch")
