@@ -34,8 +34,13 @@ Phases, each printing one line (any failure exits non-zero):
      backend="host" at 16383^2 and at 26,000 x 2,000 (past the old
      one-block cap of 25,600 lanes; aligned lists equal), and the
      device/host times of perform_alignment from 128^2 to 2048^2;
-  8. nw_traceback: the kernel against its plain version on the phase-7
-     pointers and on a mixed-length batch (ops[:k], k, xpt, ypt identical);
+  8. nw_traceback: one walk step in shared memory (ta_nw_tb_chase); the
+     kernel against its plain version (ops[:k], k, xpt, ypt identical) on
+     the phase-7 4096^2 pointers, the 8191^2 and 16383^2 pairs, one 2400^2
+     grid launch (327 scoring rows) and a mixed-length batch, with kernel
+     ms, the longest k, the chain floor (k x the step), windows and
+     misses; perform_alignment(backend="device") at 16383^2 split into the
+     fill, the walk, the wire's copy and the host replay;
   9. nw_fill_batched: align_pairs(min_device_cells=0) on six pairs of one
      bucket against the host; align_grid over the 729-row scoring grid on
      the folio's transcript against its corrupted OCR and on a seeded
@@ -109,12 +114,15 @@ once, each output written once) over 3.35 TB/s and its operations over
 67 T/s, the H100 SXM's published HBM rate and float32 rate outside the
 tensor cores; the integer kernels' operations are counted against that
 rate too (the published table has no int32 row), which makes their bound
-a floor.
+a floor. The traceback's real floor is a latency chain, not bytes: phase 8
+prints it as the longest walk's k times one step of the walk measured in
+shared memory (ta_nw_tb_chase).
 """
 
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -674,29 +682,124 @@ def phase_nw_fill(dev):
              **fill_bound, "library_ms": None}, got, nts, nos)
 
 
+def tb_step_ns(dev, blocks: int = 65536) -> float:
+    """Nanoseconds of one step of the traceback's walk in shared memory:
+    ``ta_nw_tb_chase`` runs blocks x 16 dependent steps of the kernel's
+    walk on one thread over seeded pointers (CUDA events, the mean of 5
+    calls after a warm-up)."""
+    sink = torch.empty(1024 * 16, dtype=torch.int32, device=dev)
+    lib = _kernels.lib()
+
+    def run():
+        _kernels.check(lib.ta_nw_tb_chase(
+            sink.data_ptr(), blocks, dev.index or 0,
+            _kernels.stream_handle(dev)), "nw_tb_chase launch")
+
+    return cuda_ms(run, 5) * 1e6 / (blocks * 16)
+
+
+def grid_launch(dev):
+    """The packed pointers of one align_grid launch on the seeded 2400²
+    pair: the scoring grid's first ``_per_launch`` rows (327), as in
+    phase 9."""
+    t, o = seeded_pair(2400, 2400, 2400)
+    tt, oo, nts, nos = nw_tensors([t], [o], dev)
+    L, NoP = tt.shape[1], oo.shape[1]
+    n = min(729, nwt._per_launch(L, NoP))
+    rows = np.concatenate([scoring_grid()[:n], np.full((n, 2), -1)], axis=1)
+    pr = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    packed = nwk.fill_batched_cuda(tt.expand(n, L).contiguous(), oo, pr)
+    return packed, nts.expand(n).contiguous(), nos.expand(n).contiguous()
+
+
+def nw_split(n: int, dev) -> None:
+    """perform_alignment(backend="device") on the seeded n² pair, and the
+    same work in its parts: the fill and the walk (CUDA events), the
+    wire's copy to the host and the host replay (host clock)."""
+    a, b = seeded_pair(n, n, n)
+    perform_alignment(a, b, backend="device", device=dev)
+    total = min(wall_ms(lambda: perform_alignment(
+        a, b, backend="device", device=dev))[1] for _ in range(3))
+    t, o = list(a) + [" "], list(b) + [" "]
+    tt, oo, nts, nos = nw_tensors([a], [b], dev)
+    row = torch.from_numpy(
+        nwt.kernel_params(resolve_scoring(None))[None]).to(dev)
+    packed, fill_ms = timed_once(lambda: nwk.fill(tt, oo, row))
+    wire, walk_ms = timed_once(lambda: nwk.traceback_batched(packed, nts,
+                                                             nos))
+    host, copy_ms = wall_ms(lambda: wire.cpu().numpy())
+    ops, k, x, y = nwt.unwire(host)
+    _, replay_ms = wall_ms(lambda: nwt.replay_ops(
+        t, o, ops[0], int(k[0]), int(x[0]), int(y[0])))
+    print(f"nw perform_alignment {n}^2 on the card: {total:.3f} ms wall "
+          f"(best of 3); fill {fill_ms:.3f} ms, walk {walk_ms:.3f} ms "
+          f"({walk_ms / total:.1%} of the wall), wire "
+          f"copy {copy_ms:.3f} ms, host replay {replay_ms:.3f} ms, the rest "
+          f"{total - fill_ms - walk_ms - copy_ms - replay_ms:.3f} ms")
+
+
+def tb_cases(dev, first=None):
+    """The traceback's timed cases, one at a time as (name, packed, nts,
+    nos): the seeded 4096² pair of phase 7 (``first``, its pointers, when
+    the caller holds them), the 8191² and 16383² pairs of phase 7, and one
+    2400² grid launch. Phase 8 and chip_nw_ablation.py time these."""
+    row = torch.tensor([DEFAULT_ROW], dtype=torch.int32, device=dev)
+    if first is None:
+        a, b = seeded_pair(4095, 4095, 7)
+        ta, ob, tn, on = nw_tensors([a], [b], dev)
+        first = (nwk.fill_cuda(ta, ob, row), tn, on)
+    yield ("4096^2", *first)
+    del first
+    for n in (8191, 16383):
+        a, b = seeded_pair(n, n, n)
+        ta, ob, tn, on = nw_tensors([a], [b], dev)
+        yield (f"{n}^2", nwk.fill_cuda(ta, ob, row), tn, on)
+    yield ("2400^2 grid launch", *grid_launch(dev))
+
+
+def tb_text(wire, step: float) -> str:
+    """The walk's longest k, its chain floor (k x the measured step) and
+    the kernel's window and miss counts, from the kernel's wire."""
+    win, mis = nwk.traceback_stats(wire)
+    k = int(wire[:, 0].max())
+    return (f"longest k = {k}, chain floor {k * step / 1e6:.4f} ms; windows "
+            f"{int(win.sum())}, misses {int(mis.sum())}")
+
+
 def phase_nw_traceback(dev, packed, nts, nos):
-    """Phase 8: the traceback kernel against its plain version on the
-    phase-7 pointers and on a mixed-length batch of one bucket."""
-    w1 = nwk.traceback_cuda(packed, nts, nos)
-    w0, plain_ms = timed_once(
-        lambda: nwk.traceback_reference(packed, nts, nos))
-    same = wire_equal(w1, w0)
-    ms = cuda_ms(lambda: nwk.traceback_cuda(packed, nts, nos), 10)
+    """Phase 8: the traceback kernel against its plain version on
+    ``tb_cases`` and a mixed-length batch of one bucket: wires equal,
+    kernel ms, k, windows, misses and the chain floor (the longest walk's
+    k x the measured step); then perform_alignment's split at 16383²."""
+    step = tb_step_ns(dev)
+    print(f"nw_traceback: one walk step in shared memory {step:.3f} ns "
+          f"(ta_nw_tb_chase)")
+    row = torch.tensor([DEFAULT_ROW], dtype=torch.int32, device=dev)
     pairs = [seeded_pair(1100 + 150 * k, 1900 - 140 * k, 50 + k)
              for k in range(6)]
     tt, oo, bn, bo = nw_tensors([p[0] for p in pairs], [p[1] for p in pairs],
                                 dev)
-    row = torch.tensor([DEFAULT_ROW], dtype=torch.int32, device=dev)
-    bp = nwk.fill_batched_cuda(tt, oo, row)
-    same_b = wire_equal(nwk.traceback_cuda(bp, bn, bo),
-                        nwk.traceback_reference(bp, bn, bo))
-    print(f"nw_traceback: 4096^2 path k={int(w1[0, 0])} wire identical "
-          f"{same}; 6 mixed pairs of one bucket identical {same_b}; kernel "
-          f"{ms:.3f} ms plain {plain_ms:.3f} ms")
-    check(same and same_b, "nw_traceback disagrees with its plain version")
-    k = int(w1[0, 0])  # the walk reads k cells and writes k ops
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            **bound(k + 4 * (3 + k), 6 * k), "library_ms": None}
+    mixed = ("6 mixed pairs", nwk.fill_batched_cuda(tt, oo, row), bn, bo)
+    stats = None
+    for name, pk, tn, on in itertools.chain(
+            tb_cases(dev, (packed, nts, nos)), [mixed]):
+        w1 = nwk.traceback_cuda(pk, tn, on)
+        w0, plain_ms = timed_once(lambda: nwk.traceback_reference(pk, tn, on))
+        same = wire_equal(w1, w0)
+        ms = cuda_ms(lambda: nwk.traceback_cuda(pk, tn, on), 10)
+        print(f"nw_traceback: {name} (B = {pk.shape[0]}, L = {pk.shape[2]}): "
+              f"wire identical {same}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms; {tb_text(w1, step)}")
+        check(same, f"nw_traceback disagrees with its plain version at "
+              f"{name}")
+        if stats is None:  # the kernels line: the 4096² pair
+            k = int(w1[:, 0].max())
+            stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     **bound(k + 4 * (3 + k), 6 * k), "library_ms": None}
+        del pk, w1, w0
+    del mixed
+    nw_split(16383, dev)
+    return stats
 
 
 def host_align(t, o, row6):

@@ -24,6 +24,8 @@ from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_cuda, bidir_scan_reference)
 
+from nw_window_model import TB_KERNEL, windowed_walk
+
 pytestmark = pytest.mark.cuda
 
 
@@ -289,21 +291,72 @@ def test_nw_fill_batched_kernel_matches_plain(cuda, mode):
     assert _valid_equal(got, ref, nts, nos)
 
 
-def test_nw_traceback_kernel_matches_plain(cuda):
-    pairs = [_nw_pair(1100 + 150 * k, 1900 - 140 * k, 50 + k)
-             for k in range(6)]
-    t, o, nts, nos = _nw_batch(pairs, cuda)
-    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
-    packed = nw_kernel.fill_batched(t, o, row)
+def _tb_equal_to_plain(packed, nts, nos):
+    """The kernel's wire against the plain walk's (k, xpt, ypt, ops[:k]),
+    and its window and miss counts against the CPU model's schedule at the
+    kernel's constants (``nw_window_model``)."""
     before = _kernels.launches["nw_traceback"]
     w1 = nw_kernel.traceback_batched(packed, nts, nos)
     assert _kernels.launches["nw_traceback"] == before + 1
     w0 = nw_kernel.traceback_reference(packed, nts, nos)
     torch.cuda.synchronize()
     assert torch.equal(w1[:, :3], w0[:, :3])
-    for b in range(len(pairs)):
+    for b in range(packed.shape[0]):
         k = int(w1[b, 0])
         assert torch.equal(w1[b, 3:3 + k], w0[b, 3:3 + k])
+    model, _ = windowed_walk(packed.cpu().numpy(), nts.cpu().numpy(),
+                             nos.cpu().numpy(), **TB_KERNEL)
+    windows, misses = nw_kernel.traceback_stats(w1)
+    assert windows.tolist() == model[:, -2].tolist()
+    assert misses.tolist() == model[:, -1].tolist()
+    return w1
+
+
+def test_nw_traceback_kernel_matches_plain(cuda):
+    pairs = [_nw_pair(1100 + 150 * k, 1900 - 140 * k, 50 + k)
+             for k in range(6)]
+    t, o, nts, nos = _nw_batch(pairs, cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    _tb_equal_to_plain(nw_kernel.fill_batched(t, o, row), nts, nos)
+
+
+def test_nw_traceback_kernel_crosses_many_windows(cuda):
+    """A 6000-character pair that differs in one character in 50 walks an
+    almost diagonal path through dozens of 256 x 128 windows, each taken
+    from the prefetch (no miss), and a random 3000 x 2500 pair through
+    dozens more: wires equal the plain walk's."""
+    rng = np.random.default_rng(11)
+    a = list("abcdefgh")
+    t = [a[k] for k in rng.integers(0, 8, 6000)]
+    o = [a[(a.index(c) + 1) % 8] if k % 50 == 7 else c
+         for k, c in enumerate(t)]
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    for n, pair in enumerate([(t, o), _nw_pair(3000, 2500, 9)]):
+        tt, oo, nts, nos = _nw_batch([pair], cuda)
+        wire = _tb_equal_to_plain(nw_kernel.fill(tt, oo, row), nts, nos)
+        windows, misses = nw_kernel.traceback_stats(wire)
+        assert int(windows[0]) >= int(wire[0, 0]) // nw_kernel.TB_LANES >= 20
+        if n == 0:
+            assert int(misses[0]) == 0
+
+
+def test_nw_traceback_kernel_when_the_prediction_misses(cuda):
+    """Gap runs of 400 characters in either sequence bend the path away
+    from the slope the prefetch extrapolates: the kernel stages windows on
+    demand (misses >= 1) in a batch of both and a plain pair, and its wires
+    equal the plain walk's."""
+    rng = np.random.default_rng(12)
+    a = list("abcdefgh")
+    base = [a[k] for k in rng.integers(0, 8, 2500)]
+    junk = ["z"] * 400
+    pairs = [(base, base[:1200] + junk + base[1200:]),
+             (base[:1200] + junk + base[1200:], base), (base, list(base))]
+    t, o, nts, nos = _nw_batch(pairs, cuda)
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    wire = _tb_equal_to_plain(nw_kernel.fill_batched(t, o, row), nts, nos)
+    windows, misses = nw_kernel.traceback_stats(wire)
+    assert int(misses[0]) >= 1 and int(misses[1]) >= 1
+    assert int(misses[2]) == 0
 
 
 def test_nw_wrappers_reject_bad_inputs(cuda):
@@ -325,6 +378,10 @@ def test_nw_wrappers_reject_bad_inputs(cuda):
         nw_kernel.traceback_batched(packed, nts, nos + 1000)
     with pytest.raises(ValueError):  # int64 sizes
         nw_kernel.traceback_batched(packed, nts.long(), nos)
+    with pytest.raises(ValueError):  # L not a multiple of the window's lanes
+        nw_kernel.traceback_batched(
+            torch.zeros((3, 300, 200), dtype=torch.uint8, device=cuda), nts,
+            nos)
 
 
 def _stroke(H, W):

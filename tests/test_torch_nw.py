@@ -19,7 +19,7 @@ import torch
 
 from text_alignment_tpu.align import perform_alignment as jax_align
 from text_alignment_tpu.align import resolve_scoring
-from text_alignment_tpu.align import nw_jax
+from text_alignment_tpu.align import nw_jax, nw_pallas
 from text_alignment_tpu.align.nw_pallas import _token_ids as pallas_ids
 from text_alignment_tpu.evaluate import grid_search as jax_grid_search
 from text_alignment_tpu.evaluate import scoring_grid
@@ -28,6 +28,8 @@ from text_alignment_tpu.synth import corrupt_ocr, make_page, ocr_with_spaces
 from text_alignment_tpu_torch.align import api, nw_kernel, nw_torch
 from text_alignment_tpu_torch.align import perform_alignment
 from text_alignment_tpu_torch.evaluate import grid_search
+
+from nw_window_model import TB_KERNEL, TB_SMALL, WindowEscape, windowed_walk
 
 torch.set_num_threads(1)
 
@@ -407,6 +409,131 @@ def test_segment_hand_off_matches_fill(n, m, S):
     np.testing.assert_array_equal(
         valid_cells(got, Nt, No),
         valid_cells(nw_jax.fill_jax_packed(tp, op, sc), Nt, No))
+
+
+def _jax_walks(packed, nts, nos):
+    """[k, xpt, ypt, ops[:k]] of nw_jax._traceback_ops, pair by pair."""
+    P = packed.shape[1] + 1
+    out = []
+    for b in range(packed.shape[0]):
+        ops, k, x, y = (np.asarray(v) for v in nw_jax._traceback_ops(
+            jnp.asarray(packed[b]), jnp.int32(nts[b]), jnp.int32(nos[b]), P))
+        out.append((int(k), int(x), int(y), ops[:int(k)]))
+    return out
+
+
+def _assert_wire_is(wire, walks):
+    for b, (k, x, y, ops) in enumerate(walks):
+        assert tuple(wire[b, :3]) == (k, x, y)
+        np.testing.assert_array_equal(wire[b, 3:3 + k], ops)
+
+
+def _tb_pairs(case):
+    """(transcript, ocr) pairs (sentinels not included) of one model case."""
+    rng = random.Random(TB_CASES.index(case))
+    base = [rng.choice("abcdefg") for _ in range(300)]
+    if case == "diagonal":
+        return [(base, list(base))]
+    if case == "random":
+        return [random_pair(rng, 260, 240)]
+    if case == "y_gap_run":  # 70 OCR characters inserted: a y-gap run
+        junk = [rng.choice("xyz") for _ in range(70)]
+        return [(base, base[:150] + junk + base[150:])]
+    if case == "x_gap_run":  # 70 transcript characters the OCR lacks
+        junk = [rng.choice("xyz") for _ in range(70)]
+        return [(base[:150] + junk + base[150:], base)]
+    if case == "full_buckets":  # Nt = L, No = NoP: the end cell at (D-1, L-1)
+        return [random_pair(rng, 127, 127)]
+    if case == "one":  # Nt or No of 1: no step
+        return [([], list("abc")), (list("abcd"), []), ([], [])]
+    assert case == "mixed"
+    return [random_pair(rng, n, m) for n, m in
+            [(200, 90), (40, 250), (255, 255), (0, 17), (120, 3)]]
+
+
+TB_CASES = ["diagonal", "random", "y_gap_run", "x_gap_run", "full_buckets",
+            "one", "mixed"]
+
+
+@pytest.mark.parametrize("case", TB_CASES)
+def test_window_schedule_matches_jax_and_pallas(case):
+    """The kernel's window schedule, modelled on the CPU with windows shrunk
+    to 24 x 12 so that the walk hops dozens of times, gives nw_jax's
+    _traceback_ops and the Pallas tile-hopping kernel (interpret mode) on
+    every pair: exits through both edges, origins clamped at 0 and windows
+    whose top is the last diagonal and lane, a gap run that the slope
+    prediction misses, Nt or No of 1, and a mixed-length batch."""
+    pairs = _tb_pairs(case)
+    t, o, nts, nos = _bucket_batch(pairs)
+    sc = resolve_scoring(None)
+    row = torch.from_numpy(nw_torch.kernel_params(sc)[None])
+    packed = nw_kernel.fill_batched(t, o, row).numpy()
+    wire, log = windowed_walk(packed, nts, nos, **TB_SMALL)
+    walks = _jax_walks(packed, nts, nos)
+    _assert_wire_is(wire, walks)
+    D, L = packed.shape[1:]
+    p_ops, p_k, p_x, p_y = (np.asarray(v) for v in
+                            nw_pallas.traceback_ops_pallas_batched(
+                                jnp.asarray(packed), nts, nos, D + 1, L,
+                                interpret=True))
+    _assert_wire_is(wire, [(int(p_k[b]), int(p_x[b]), int(p_y[b]),
+                            p_ops[b, :int(p_k[b])])
+                           for b in range(len(pairs))])
+    windows, misses = wire[:, -2], wire[:, -1]
+    edges = {e for pair_edges, _ in log for e in pair_edges}
+    origins = [o for _, pair_origins in log for o in pair_origins]
+    long = wire[:, 0] > 100
+    assert windows[long].min(initial=10) >= 10
+    if case == "one":
+        assert wire[:, 0].tolist() == [0, 0, 0] and windows.sum() == 0
+    elif case == "diagonal":  # two rows a step: the lane edge binds
+        assert edges == {"i"} and misses.sum() == 0
+        assert any(d0 == 0 for d0, _ in origins)
+        assert any(i0 == 0 for _, i0 in origins)
+    elif case == "full_buckets":
+        assert (D - TB_SMALL["TH"], L - TB_SMALL["TW"]) in origins
+    else:
+        assert edges == {"d", "i"} and misses.sum() >= 1
+
+
+def test_window_schedule_at_the_kernel_size():
+    """At the kernel's own window (256 x 128, blocks of 16) the model gives
+    the plain walk's wire on pairs long enough to hop, and a diagonal path
+    takes one window per ~100 steps with no miss."""
+    rng = random.Random(17)
+    base = [rng.choice("abcdefg") for _ in range(1500)]
+    pairs = [(base, list(base)), random_pair(rng, 1200, 1400),
+             (base, base[:700] + ["z"] * 300 + base[700:])]
+    t, o, nts, nos = _bucket_batch(pairs)
+    row = torch.from_numpy(nw_torch.kernel_params(resolve_scoring(None))[None])
+    packed = nw_kernel.fill_batched(t, o, row)
+    ref = nw_kernel.traceback_reference(packed, torch.from_numpy(nts),
+                                        torch.from_numpy(nos)).numpy()
+    wire, _ = windowed_walk(packed.numpy(), nts, nos, **TB_KERNEL)
+    assert np.array_equal(wire[:, :3], ref[:, :3])
+    for b in range(len(pairs)):
+        np.testing.assert_array_equal(wire[b, 3:3 + wire[b, 0]],
+                                      ref[b, 3:3 + ref[b, 0]])
+    assert 10 <= wire[0, -2] <= wire[0, 0] // 80 + 2 and wire[0, -1] == 0
+    assert wire[2, -1] >= 1
+
+
+@pytest.mark.parametrize("case,U", [("diagonal", 2), ("random", 4),
+                                    ("y_gap_run", 4), ("x_gap_run", 4),
+                                    ("mixed", 4)])
+def test_window_schedule_fails_with_one_more_safe_step(case, U):
+    """The safe-step count is tight: one step more and the walk reads a
+    cell outside its window. Whole blocks of U steps take the extra step
+    only when it completes a block, which the diagonal path's windows never
+    do at U = 4, so that path is checked at U = 2."""
+    t, o, nts, nos = _bucket_batch(_tb_pairs(case))
+    row = torch.from_numpy(nw_torch.kernel_params(resolve_scoring(None))[None])
+    packed = nw_kernel.fill_batched(t, o, row).numpy()
+    cfg = dict(TB_SMALL, U=U)
+    _assert_wire_is(windowed_walk(packed, nts, nos, **cfg)[0],
+                    _jax_walks(packed, nts, nos))
+    with pytest.raises(WindowEscape):
+        windowed_walk(packed, nts, nos, extra=1, **cfg)
 
 
 @pytest.mark.parametrize("bad", ["sizes", "dtype", "rank"])

@@ -150,6 +150,8 @@ def lib():
                                          i, p]
         L.ta_nw_traceback_batched.restype = i
         L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
+        L.ta_nw_tb_chase.restype = i
+        L.ta_nw_tb_chase.argtypes = [p, i, i, p]
         L.ta_cc_band_rows.restype = i
         L.ta_cc_band_rows.argtypes = [i]
         L.ta_cc_scratch_ints.restype = ctypes.c_size_t

@@ -15,7 +15,8 @@ j - 1 (one row is shared by every pair); ``params`` (1 or B, 8)
 shared). The fill returns packed pointers (B, D = L + NoP - 1, L) uint8,
 ``packed[b, i + j, i] = mp | xp << 2 | yp << 4``. The traceback returns the
 wire (B, 3 + L + NoP) int32 ``[k, xpt, ypt, ops...]``, of which ``ops[:k]``
-are defined.
+are defined; the kernel puts its window and miss counts in the two last
+slots (:func:`traceback_stats`).
 
 The fill kernel runs each pair as P = ceil(L / S) segments of S lanes, one
 CTA a segment, handing each segment's boundary to the next through global
@@ -40,6 +41,13 @@ _RUNS = (1, 2, 4, 8, 16, 32)  # lanes per thread the fill kernel is built for
 # one lane a thread was the fastest at 8191^2 and 16383^2 (chip_smoke.py
 # phase 7 times them; PERF.md).
 SEG_FLOOR = 128
+# The traceback kernel's window schedule (the TA_TB_* of
+# csrc/nw_traceback.cu): window rows and lanes, steps a block, the
+# prediction's margins above and right of the predicted exit, the lane
+# origin's alignment. tests/nw_window_model.py models the kernel with these.
+TB_SCHEDULE = dict(TH=256, TW=128, U=16, MD=48, MI=24, ALIGN=16)
+# L must be a multiple of the window's lanes, which every bucket is.
+TB_LANES = TB_SCHEDULE["TW"]
 
 
 def _first_max3(a, b, c):
@@ -325,6 +333,9 @@ def _check_traceback(packed, nts, nos):
 def traceback_cuda(packed, nts, nos):
     """Launch ``ta_nw_traceback_batched`` on PyTorch's current stream."""
     B, D, L = _check_traceback(packed, nts, nos)
+    if L % TB_LANES or B * D >= 2**31:
+        raise ValueError(f"nw_traceback: the kernel takes L a multiple of "
+                         f"{TB_LANES} and B * D < 2^31, got {(B, D, L)}")
     wire = torch.empty((B, 3 + D + 1), dtype=torch.int32, device=packed.device)
     code = _kernels.lib().ta_nw_traceback_batched(
         packed.data_ptr(), nts.data_ptr(), nos.data_ptr(), wire.data_ptr(), B,
@@ -332,6 +343,14 @@ def traceback_cuda(packed, nts, nos):
     _kernels.check(code, "nw_traceback launch")
     _kernels.launches["nw_traceback"] += 1
     return wire
+
+
+def traceback_stats(wire):
+    """(windows, misses) per pair of a kernel's wire: the windows it
+    staged and how many of them it staged on demand because the predicted
+    window did not hold the cursor (``ops[P-2]``, ``ops[P-1]``, which the
+    walk never reaches). The plain version leaves both 0."""
+    return wire[:, -2], wire[:, -1]
 
 
 def traceback_batched(packed, nts, nos):
