@@ -37,15 +37,20 @@ Phases, each printing one line (any failure exits non-zero):
   8. nw_traceback: one walk step in shared memory (ta_nw_tb_chase); the
      kernel against its plain version (ops[:k], k, xpt, ypt identical) on
      the phase-7 4096^2 pointers, the 8191^2 and 16383^2 pairs, one 2400^2
-     grid launch (327 scoring rows) and a mixed-length batch, with kernel
+     grid launch (243 scoring rows) and a mixed-length batch, with kernel
      ms, the longest k, the chain floor (k x the step), windows and
      misses; perform_alignment(backend="device") at 16383^2 split into the
      fill, the walk, the wire's copy and the host replay;
   9. nw_fill_batched: align_pairs(min_device_cells=0) on six pairs of one
      bucket against the host; align_grid over the 729-row scoring grid on
      the folio's transcript against its corrupted OCR and on a seeded
-     2400^2 pair, combos/s, 27 sampled rows against the host fill; the
-     kernel against its plain version on 16 rows at chant size;
+     2400^2 pair, combos/s, 27 sampled rows against the host fill, and
+     each grid's work summed over its launches: fill, walk, wire copy and
+     host replay; the kernel against its plain version (pointer bytes
+     identical on every valid cell) on the chant grid's one launch (729
+     rows), one 2400^2 grid launch (243 rows) and its first 8 rows, and
+     16 chant rows, with its plan (G, run, threads, registers, CTAs), ms
+     and chain floor;
   10. NW inside process(): a 6000 x 4000 px page of 30 lines whose pair
      passes auto_device_min_cells(), OCR injected; process(backend="hybrid")
      on the card launches nw_fill and nw_traceback and its JSON equals the
@@ -99,7 +104,8 @@ Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
 kernels, phase 16's one-at-a-time drain for lineest_full), error, times and
-bound, and last the device JSON line. Weights and pages are made from fixed
+bound (nw_fill_batched's at one 2400^2 grid launch, the shape its launches
+have, with its chain floor beside), and last the device JSON line. Weights and pages are made from fixed
 seeds. Needs no network and no JAX.
 
 With --profile it runs phases 1 and 2, then only the launch profiles of
@@ -698,18 +704,75 @@ def tb_step_ns(dev, blocks: int = 65536) -> float:
     return cuda_ms(run, 5) * 1e6 / (blocks * 16)
 
 
+def chant_pair(page):
+    """The folio's transcript against its corrupted OCR (315 x 312), the
+    chant-size grid's pair."""
+    ocr = ocr_with_spaces(corrupt_ocr(np.random.default_rng(5),
+                                      page.char_boxes))
+    return list(page.transcript), [c.char for c in ocr]
+
+
+def grid_rows(rows) -> np.ndarray:
+    """Scoring-grid rows as the kernels' int32 rows (boundary gap -1)."""
+    rows = np.asarray(rows)
+    return np.concatenate([rows, np.full((len(rows), 2), -1)],
+                          axis=1).astype(np.int32)
+
+
+def grid_inputs(t, o, rows, dev):
+    """One align_grid launch's inputs on the card: the pair's one
+    transcript and one OCR row, a scoring row each, and the pair's sizes
+    (one entry each), as align_grid passes them to fill_batched."""
+    tt, oo, nts, nos = nw_tensors([t], [o], dev)
+    pr = torch.from_numpy(grid_rows(rows)).to(dev)
+    return tt, oo, pr, nts, nos
+
+
+def fill_cases(dev, page=None):
+    """The batched fill's cases, one at a time as (name, t, o, params, nts,
+    nos): the chant-size grid's one launch (729 rows), one 2400^2 grid
+    launch (grid_step rows: 243) and its first 8 rows, and 16 sampled
+    chant rows. Phase 9 and chip_nw_ablation.py time these."""
+    grid = scoring_grid()
+    chant = chant_pair(make_folio() if page is None else page)
+    yield ("chant grid launch", *grid_inputs(*chant, grid, dev))
+    yield ("2400^2 grid launch", *grid_2400(dev))
+    yield ("2400^2 grid, 8 rows", *grid_2400(dev, 8))
+    sample = np.random.default_rng(9).choice(len(grid), 27, replace=False)
+    yield ("16 chant rows", *grid_inputs(*chant, grid[sample[:16]], dev))
+
+
+def grid_2400(dev, n=None):
+    """The inputs of one align_grid launch on the seeded 2400^2 pair: the
+    scoring grid's first ``n`` rows, by default a launch's (grid_step:
+    243 of 729)."""
+    t, o = seeded_pair(2400, 2400, 2400)
+    grid = scoring_grid()
+    if n is None:
+        n = nwt.grid_step(len(grid), nwt._bucket(2401), nwt._bucket(2401))
+    return grid_inputs(t, o, grid[:n], dev)
+
+
 def grid_launch(dev):
     """The packed pointers of one align_grid launch on the seeded 2400²
-    pair: the scoring grid's first ``_per_launch`` rows (327), as in
-    phase 9."""
-    t, o = seeded_pair(2400, 2400, 2400)
-    tt, oo, nts, nos = nw_tensors([t], [o], dev)
-    L, NoP = tt.shape[1], oo.shape[1]
-    n = min(729, nwt._per_launch(L, NoP))
-    rows = np.concatenate([scoring_grid()[:n], np.full((n, 2), -1)], axis=1)
-    pr = torch.from_numpy(rows.astype(np.int32)).to(dev)
-    packed = nwk.fill_batched_cuda(tt.expand(n, L).contiguous(), oo, pr)
+    pair (243 rows), and the sizes of its pairs."""
+    tt, oo, pr, nts, nos = grid_2400(dev)
+    n = pr.shape[0]
+    packed = nwk.fill_batched_cuda(tt, oo, pr, nts, nos)
     return packed, nts.expand(n).contiguous(), nos.expand(n).contiguous()
+
+
+def group_text(B, t, o, nts) -> str:
+    """The group route's plan of a launch: G, run, threads, CTAs."""
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    shared = t.shape[0] == 1 and o.shape[0] == 1
+    attrs = nwk.group_attrs(t.device, shared)
+    run, g, threads = nwk.group_plan(B, int(nts.max()), t.shape[1], sms,
+                                     attrs)
+    regs, spill, _ = attrs[(run, g)]
+    return (f"G = {g}, run = {run}, {threads} threads ({regs} registers, "
+            f"{spill} spill bytes), {-(-B // g)} CTAs a launch, "
+            f"{nwk.resident_ctas(threads, regs)} resident an SM")
 
 
 def nw_split(n: int, dev) -> None:
@@ -810,9 +873,11 @@ def host_align(t, o, row6):
 def phase_nw_batched(dev, page):
     """Phase 9: align_pairs on one bucket against the host; align_grid over
     the 729-row scoring grid at chant size and at 2400², a sample of rows
-    against the host fill; the batched kernel against its plain version on
-    16 rows at chant size. Returns the stats and the launches of the grid
-    runs."""
+    against the host fill, and each grid's work split into fill, walk,
+    copy and replay; the batched kernel against its plain version on
+    ``fill_cases`` (both grids' launches, 8 rows at 2400², 16 chant rows)
+    with its plan and ms. Returns the stats (the 2400² launch's) and the
+    launches of the grid runs."""
     pairs = [seeded_pair(1100 + 150 * k, 1950 - 140 * k, 70 + k)
              for k in range(6)]
     buckets = {(nwt._bucket(len(t) + 1), nwt._bucket(len(o) + 1))
@@ -824,9 +889,7 @@ def phase_nw_batched(dev, page):
           f"the host {same}")
     check(same and len(buckets) == 1, "align_pairs differs from the host")
 
-    chant_ocr = ocr_with_spaces(corrupt_ocr(
-        np.random.default_rng(5), page.char_boxes))
-    chant = (list(page.transcript), [c.char for c in chant_ocr])
+    chant = chant_pair(page)
     grid = scoring_grid()
     sample = np.random.default_rng(9).choice(len(grid), 27, replace=False)
     launches = {}
@@ -846,6 +909,7 @@ def phase_nw_batched(dev, page):
         check(ok, f"align_grid {name} differs from the host fill")
         check(launches[name]["nw_fill_batched"] >= 1,
               "align_grid did not launch nw_fill_batched")
+        grid_split(name, t, o, grid, dev, g_ms)
     for n in (50, 100, 200, 400):  # the grid's 40,000-cell threshold
         t, o = seeded_pair(n, n, n)
         align_grid(t, o, grid, device=dev)
@@ -855,25 +919,67 @@ def phase_nw_batched(dev, page):
         print(f"nw grid crossover {n}^2: 729 rows on the card {g_ms:.1f} ms, "
               f"729 host fills ~{729 * h_ms:.1f} ms (729 x one row)")
 
-    t, o = chant
-    tt, oo, nts, nos = nw_tensors([t], [o], dev)
-    rows = np.concatenate([grid[sample[:16]], np.full((16, 2), -1)], axis=1)
-    pr = torch.from_numpy(rows.astype(np.int32)).to(dev)
-    tb = tt.expand(16, -1).contiguous()
-    got = nwk.fill_batched_cuda(tb, oo, pr)
-    ref, plain_ms = timed_once(lambda: nwk.fill_reference(tb, oo, pr))
-    same = valid_equal(got, ref, nts.expand(16), nos.expand(16))
-    ms = cuda_ms(lambda: nwk.fill_batched_cuda(tb, oo, pr), 10)
-    print(f"nw_fill_batched: 16 rows at chant size (L = {tt.shape[1]}, "
-          f"NoP = {oo.shape[1]}), per_pair + shared_feed, identical {same}; "
-          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-    check(same, "nw_fill_batched disagrees with its plain version")
-    L, NoP = tt.shape[1], oo.shape[1]
-    cells = 16 * int(nts[0]) * int(nos[0])
-    stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-             **bound(16 * (L + NoP - 1) * L + 4 * (16 * L + NoP + 16 * 8),
-                     20 * cells), "library_ms": None}
+    stats = None
+    mhz = max_sm_mhz()
+    for name, tt, oo, pr, nts, nos in fill_cases(dev, page):
+        B = pr.shape[0]
+        sizes = nts.cpu(), nos.cpu()  # host sizes, as align_grid passes
+        got = nwk.fill_batched_cuda(tt, oo, pr, *sizes)
+        ref, plain_ms = timed_once(lambda: nwk.fill_reference(tt, oo, pr))
+        same = valid_equal(got, ref, nts.expand(B), nos.expand(B))
+        del ref
+        ms = cuda_ms(lambda: nwk.fill_batched_cuda(tt, oo, pr, *sizes), 10)
+        Nt, No = int(nts[0]), int(nos[0])
+        floor = chain_floor_ms(Nt + No - 1, mhz)
+        print(f"nw_fill_batched: {name} (B = {B}, {Nt} x {No} in L = "
+              f"{tt.shape[1]}, NoP = {oo.shape[1]}), "
+              f"{group_text(B, tt, oo, nts)}: valid cells identical "
+              f"{same}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; chain "
+              f"floor {floor:.4f} ms")
+        check(same, f"nw_fill_batched disagrees with its plain version at "
+              f"{name}")
+        if name == "2400^2 grid launch":  # the kernels line: its 3 launches
+            cells = B * Nt * No
+            stats = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     **bound(cells + 4 * (tt.shape[1] + oo.shape[1] + 8 * B
+                                          + 2), 20 * cells),
+                     "chain_floor_ms": floor, "library_ms": None}
+        del got
     return stats, launches
+
+
+def grid_split(name, t, o, grid, dev, wall) -> None:
+    """align_grid's work on the pair in its parts, summed over the grid's
+    launches: the fill and the walk (CUDA events), the wires' copies to the
+    host and the host replay (host clock), beside the grid's wall."""
+    transcript, ocr = list(t) + [" "], list(o) + [" "]
+    t_ids, o_ids = nwt._token_ids(transcript, ocr)
+    Nt, No = len(t_ids), len(o_ids)
+    L, NoP = nwt._bucket(Nt), nwt._bucket(No)
+    tt = torch.from_numpy(nwt._ext(t_ids, L)[None]).to(dev)
+    oo = torch.from_numpy(nwt._ext(o_ids, NoP)[None]).to(dev)
+    rows = grid_rows(grid)
+    step = nwt.grid_step(len(rows), L, NoP)
+    parts = np.zeros(4)
+    for c0 in range(0, len(rows), step):
+        pr = torch.from_numpy(rows[c0:c0 + step]).to(dev)
+        n = pr.shape[0]
+        packed, f_ms = timed_once(
+            lambda: nwk.fill_batched(tt, oo, pr, [Nt], [No]))
+        bn = torch.full((n,), Nt, dtype=torch.int32, device=dev)
+        bo = torch.full((n,), No, dtype=torch.int32, device=dev)
+        wire, w_ms = timed_once(lambda: nwk.traceback_batched(packed, bn, bo))
+        del packed
+        host, c_ms = wall_ms(lambda: wire.cpu().numpy())
+        ops, k, x, y = nwt.unwire(host)
+        _, r_ms = wall_ms(lambda: [nwt.replay_ops(
+            transcript, ocr, ops[b], int(k[b]), int(x[b]), int(y[b]))
+            for b in range(n)])
+        parts += (f_ms, w_ms, c_ms, r_ms)
+    print(f"nw align_grid {name} split over {len(rows)} rows in launches of "
+          f"{step}: fill {parts[0]:.3f} ms, walk {parts[1]:.3f} ms, wire "
+          f"copy {parts[2]:.3f} ms, host replay {parts[3]:.3f} ms (the grid's "
+          f"wall {wall:.1f} ms)")
 
 
 def make_big_page():

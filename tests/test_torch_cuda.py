@@ -312,6 +312,110 @@ def _tb_equal_to_plain(packed, nts, nos):
     return w1
 
 
+def _group_case(mode, pairs, dev, rows=None):
+    """t, o, params, nts, nos on the card for one of the batched fill's
+    modes: "shared_row" (own rows, one scoring row), "per_pair_shared_feed"
+    (the first pair's one transcript and one OCR row, a scoring row each of
+    ``rows`` or B seeded rows: the grid) and "per_pair_own_feeds"."""
+    t, o, nts, nos = _nw_batch(pairs, dev)
+    B = t.shape[0] if rows is None else rows
+    rng = np.random.default_rng(B)
+    prm = np.concatenate([rng.integers(1, 12, (B, 1)),
+                          -rng.integers(0, 10, (B, 5)), np.full((B, 2), -1)],
+                         axis=1)
+    params = torch.from_numpy(prm.astype(np.int32)).to(dev)
+    if mode == "shared_row":
+        params = params[:1].contiguous()
+    if mode == "per_pair_shared_feed":
+        t, o, nts, nos = t[:1], o[:1], nts[:1], nos[:1]
+    return t, o, params, nts, nos
+
+
+def _group_fill_equal(t, o, params, nts, nos, group=None, run=None):
+    """The group route's pointer bytes equal the plain version's on every
+    valid cell of every pair, and the traceback kernel over them equals the
+    plain walk, with the window model's counts."""
+    before = _kernels.launches["nw_fill_batched"]
+    got = nw_kernel.fill_batched_cuda(t, o, params, nts, nos, group=group,
+                                      run=run)
+    assert _kernels.launches["nw_fill_batched"] == before + 1
+    ref = nw_kernel.fill_reference(t, o, params)
+    torch.cuda.synchronize()
+    B = got.shape[0]
+    bn, bo = nts.expand(B).contiguous(), nos.expand(B).contiguous()
+    assert _valid_equal(got, ref, bn, bo)
+    _tb_equal_to_plain(got, bn, bo)
+
+
+@pytest.mark.parametrize("mode", ["shared_row", "per_pair_shared_feed",
+                                  "per_pair_own_feeds"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_nw_fill_batched_groups_match_plain(cuda, mode, group):
+    """The group route at G = 1, 2 and 4 pairs a CTA in all three modes,
+    7 pairs (a ragged last group for G = 2 and 4), each filled only over its
+    extent: valid cells equal the plain version's, and the traceback kernel
+    walks them as the plain walk does."""
+    pairs = [_nw_pair(200 + 45 * k, 330 - 30 * k, 60 + k) for k in range(7)]
+    _group_fill_equal(*_group_case(mode, pairs, cuda, rows=7), group=group)
+
+
+@pytest.mark.parametrize("group,run", [(1, 1), (2, 2), (4, 2), (2, 4),
+                                       (1, 8)])
+def test_nw_fill_batched_mixed_extents(cuda, group, run):
+    """One bucket (L = 1024) of pairs of very different sizes, most with
+    Nt much below L and one with No = 1: each pair stops at its own extent
+    inside a group whose CTA is shaped by the largest Nt."""
+    pairs = [_nw_pair(n, m, n + m) for n, m in
+             [(900, 40), (30, 700), (120, 120), (600, 0), (5, 900), (50, 60)]]
+    t, o, nts, nos = _nw_batch(pairs, cuda)
+    assert t.shape[1] == 1024
+    row = torch.tensor([_NW_ROW], dtype=torch.int32, device=cuda)
+    _group_fill_equal(t, o, row, nts, nos, group=group, run=run)
+
+
+@pytest.mark.parametrize("mode", ["shared_row", "per_pair_own_feeds"])
+def test_nw_fill_batched_full_and_unit_extents(cuda, mode):
+    """Full buckets (Nt = L, No = NoP), Nt = 1, No = 1 and Nt = No = 1 in
+    one launch, at G = 2 and 4 and the plan."""
+    pairs = [_nw_pair(127, 255, 1), _nw_pair(0, 200, 2), _nw_pair(100, 0, 3),
+             _nw_pair(0, 0, 4), _nw_pair(127, 3, 5)]
+    case = _group_case(mode, pairs, cuda)
+    assert case[0].shape[1] == 128 and case[1].shape[1] == 256
+    assert int(case[3].max()) == 128 and int(case[4].max()) == 256
+    for group in (2, 4, None):
+        _group_fill_equal(*case, group=group)
+
+
+def test_nw_fill_batched_grid_rows(cuda):
+    """Six rows of the 2400^2 grid (one transcript and one OCR row, a
+    scoring row each) at the plan and at G = 1 and 2: valid cells equal
+    the plain version's, and the walks the plain walk's."""
+    t, o = _nw_pair(2400, 2400, 2400)
+    tt, oo, nts, nos = _nw_batch([(t, o)], cuda)
+    rows = np.concatenate([np.array([[8, -4, -7, -7, -3, 0], [5, -5, -3, -3,
+                                     -1, -1], [10, -2, -9, -4, -4, -2],
+                                     [3, -6, -2, -8, 0, -3], [7, -3, -7, -7,
+                                     -3, 0], [6, -6, -6, -6, -2, -2]]),
+                           np.full((6, 2), -1)], axis=1)
+    pr = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    for group in (None, 1, 2):
+        _group_fill_equal(tt, oo, pr, nts, nos, group=group)
+
+
+def test_nw_group_attrs_cover_every_instantiation(cuda):
+    """Every (run, G) of nw_kernel.GROUPS is compiled in both id forms, and
+    the plan refuses none of the grids' shapes for spilling."""
+    for shared in (False, True):
+        attrs = nw_kernel.group_attrs(cuda, shared)
+        assert sorted(attrs) == sorted(nw_kernel.GROUPS)
+        for regs, spill, max_threads in attrs.values():
+            assert 0 < regs <= 255 and max_threads >= 32 and spill == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    attrs = nw_kernel.group_attrs(cuda, True)
+    for B, n, L in ((729, 316, 512), (243, 2401, 2560)):
+        assert nw_kernel.group_plan(B, n, L, sms, attrs) is not None
+
+
 def test_nw_traceback_kernel_matches_plain(cuda):
     pairs = [_nw_pair(1100 + 150 * k, 1900 - 140 * k, 50 + k)
              for k in range(6)]

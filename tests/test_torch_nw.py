@@ -321,6 +321,112 @@ def test_check_fill_takes_long_transcripts():
     assert -(-26112 // S) <= H100_SMS and S >= nw_kernel.SEG_FLOOR
 
 
+# (registers, spill bytes, most threads) of each group-route instantiation
+# for one shared transcript and OCR row, as ta_nw_group_attrs reads them
+# from the library nvcc builds for sm_90a (ptxas -v, PERF.md).
+GROUP_ATTRS = {(1, 1): (31, 0, 1024), (1, 2): (60, 0, 1024),
+               (1, 4): (76, 0, 768), (2, 1): (50, 0, 1024),
+               (2, 2): (69, 0, 896), (2, 4): (118, 0, 512),
+               (4, 1): (63, 0, 896), (4, 2): (95, 0, 640),
+               (8, 1): (126, 0, 512)}
+
+
+def _waves(B, plan, attrs, sms):
+    run, g, threads = plan
+    per_wave = sms * nw_kernel.resident_ctas(threads, attrs[(run, g)][0])
+    return -(-(-(-B // g)) // per_wave)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("B,n,L", [(729, 316, 512), (243, 2401, 2560),
+                                   (6, 900, 1024)])
+def test_group_plan_runs_the_grids_in_one_wave(sms, B, n, L):
+    """The chant grid's launch (729 pairs of 316 x 313 in L = 512), a 2400^2
+    grid launch (243 pairs) and a few pairs of one bucket each get a CTA of
+    whole warps covering the extent in whole runs that divide L, from an
+    instantiation that does not spill, and run in one wave of resident
+    CTAs on an H100 (132 SMs) and on a 114-SM part, where one exists: a
+    2400^2 launch on 114 SMs would need three of its pairs an SM, which no
+    instantiation holds, so it takes the fewest waves there, two."""
+    plan = nw_kernel.group_plan(B, n, L, sms, GROUP_ATTRS)
+    run, g, threads = plan
+    assert (run, g) in nw_kernel.GROUPS and L % run == 0
+    assert threads % 32 == 0 and (threads - 32) * run < n <= threads * run
+    assert threads <= GROUP_ATTRS[(run, g)][2]
+    fewest = min(_waves(B, (r, gg, -(-n // (32 * r)) * 32), GROUP_ATTRS, sms)
+                 for r, gg in nw_kernel.GROUPS
+                 if -(-n // (32 * r)) * 32 <= GROUP_ATTRS[(r, gg)][2])
+    assert _waves(B, plan, GROUP_ATTRS, sms) == fewest
+    assert fewest == (2 if (B, sms) == (243, 114) else 1)
+
+
+def test_group_plan_forced_and_ragged():
+    """Forced G and run are kept; a G that does not divide B leaves a
+    ragged last CTA (ceil(B / G) CTAs), still in one wave at the grid."""
+    for g in (1, 2, 4):
+        run, gg, threads = nw_kernel.group_plan(729, 316, 512, 132,
+                                                GROUP_ATTRS, g=g)
+        assert gg == g and threads * run >= 316
+    assert nw_kernel.group_plan(729, 316, 512, 132, GROUP_ATTRS, run=4,
+                                g=2)[:2] == (4, 2)
+    plan = nw_kernel.group_plan(7, 300, 512, 132, GROUP_ATTRS, g=4)
+    assert plan[1] == 4 and _waves(7, plan, GROUP_ATTRS, 132) == 1
+
+
+def test_group_plan_refuses():
+    """No plan for an extent past every instantiation's threads x run, a
+    G or run that is not built, or a run that does not divide L; an
+    instantiation that spills is never taken."""
+    assert nw_kernel.group_plan(243, 8 * 512 + 1, 16384, 132,
+                                GROUP_ATTRS) is None
+    assert nw_kernel.group_plan(729, 316, 512, 132, GROUP_ATTRS,
+                                g=3) is None
+    assert nw_kernel.group_plan(729, 316, 512, 132, GROUP_ATTRS,
+                                run=16) is None
+    assert nw_kernel.group_plan(4, 90, 100, 132, GROUP_ATTRS,
+                                run=8) is None
+    spills = {k: (v[0], 64 if k != (2, 1) else 0, v[2])
+              for k, v in GROUP_ATTRS.items()}
+    assert nw_kernel.group_plan(729, 316, 512, 132, spills)[:2] == (2, 1)
+    assert nw_kernel.group_plan(729, 316, 512, 132, spills,
+                                g=2) is None
+
+
+def test_align_grid_cuts_equal_launches(monkeypatch):
+    """A grid whose rows overflow one launch's pointer budget is cut into
+    launches of equal rows (27 rows under a budget of 10: 9 + 9 + 9, not
+    10 + 10 + 7), each one transcript and one OCR row with the pair's
+    sizes, and still equals nw_jax.align_grid_jax."""
+    rng = random.Random(13)
+    t, o = random_pair(rng, 70, 85)
+    rows = scoring_grid()[::27]
+    monkeypatch.setattr(nw_torch, "PTR_BUDGET", 10 * 255 * 128)
+    seen = []
+    fill = nw_kernel.fill_batched
+
+    def spy(tt, oo, pr, nts=None, nos=None):
+        seen.append((tt.shape[0], oo.shape[0], pr.shape[0], list(nts),
+                     list(nos)))
+        return fill(tt, oo, pr, nts, nos)
+
+    monkeypatch.setattr(nw_kernel, "fill_batched", spy)
+    got = api.align_grid(t, o, rows, device="cpu")
+    assert seen == [(1, 1, 9, [71], [86])] * 3
+    assert got == nw_jax.align_grid_jax(t, o, rows)
+
+
+def test_cpu_dispatcher_takes_and_ignores_sizes():
+    """On CPU tensors fill_batched takes the pair sizes and returns the
+    plain version's whole bucket, byte for byte, whatever the sizes."""
+    rng = random.Random(14)
+    t, o, nts, nos = _bucket_batch([random_pair(rng, 50, 90),
+                                    random_pair(rng, 100, 20)])
+    row = torch.from_numpy(nw_torch.kernel_params(resolve_scoring(None))[None])
+    whole = nw_kernel.fill_reference(t, o, row)
+    for sizes in ((nts, nos), (nts[:1], nos[:1]), ([5, 5], [3, 3])):
+        assert torch.equal(nw_kernel.fill_batched(t, o, row, *sizes), whole)
+
+
 def _max3(a, b, c):
     v01 = np.maximum(a, b)
     p01 = np.where(a >= b, 0, 1)
@@ -409,6 +515,196 @@ def test_segment_hand_off_matches_fill(n, m, S):
     np.testing.assert_array_equal(
         valid_cells(got, Nt, No),
         valid_cells(nw_jax.fill_jax_packed(tp, op, sc), Nt, No))
+
+
+def group_fill(t, o, params, nts, nos, run, G, threads):
+    """The group route of the fill kernel on the CPU: CTAs of G pairs and
+    ``threads`` threads of ``run`` lanes, each thread's m, x, y at d-1 and
+    max3 and argmax at d-2 for its lanes and the G pairs, its left neighbour
+    the previous thread's last lane after diagonal d-1 (lane -1: NEG and the
+    OCR id of j = d), across warps the double-buffered warp edge record the
+    previous warp's last thread wrote on the last diagonal of that parity
+    on which its warp ran, a CTA stopping after max(Nt + No) - 2, a run
+    updated only on a diagonal where it holds a cell of some pair's extent,
+    a warp with no such run skipping the diagonal (its edge too), the
+    boundary overwrites only where some lane is not interior (which the
+    model checks), and a run stored only where it holds a cell of that
+    pair. ``t``, ``o``, ``params``, ``nts``, ``nos`` have 1 or B rows.
+    Returns (B, D, L) uint8, 0xFF where nothing was stored."""
+    neg = nw_kernel.INT_NEG
+    B = max(len(t), len(o), len(params))
+    L, NoP = t.shape[1], o.shape[1]
+    D = L + NoP - 1
+    out = np.full((B, D, L), 0xFF, np.uint8)
+    i0 = np.arange(threads) * run
+    lanes = i0[:, None] + np.arange(run)[None, :]  # (T, run)
+
+    def row(a, b):
+        return a[0 if len(a) == 1 else b]
+
+    for b0 in range(0, B, G):
+        bs = [min(b0 + g, B - 1) for g in range(G)]
+        nt = np.array([row(nts, b) if b0 + g < B else 0
+                       for g, b in enumerate(bs)], np.int64)
+        no = np.array([row(nos, b) if b0 + g < B else 0
+                       for g, b in enumerate(bs)], np.int64)
+        sc = np.stack([row(params, b) for b in bs]).astype(np.int64)
+        match, mismatch, gox, goy, gex, gey, r0, c0 = (
+            sc[:, k][:, None] for k in range(8))
+        tid = np.stack([np.where(lanes < L, row(t, b)[np.minimum(lanes,
+                                                                 L - 1)], 0)
+                        for b in bs])  # (G, T, run)
+        orow = np.stack([row(o, b) for b in bs])  # (G, NoP)
+        m, x, y, bb = (np.full((G, threads, run), neg, np.int64)
+                       for _ in range(4))
+        ba = np.zeros((G, threads, run), np.int64)
+        oc = np.zeros((G, threads, run), np.int64)
+        nwarps = threads // 32
+        # [parity][field][G, warp]: m, x, y, max3, argmax, OCR id
+        edge = np.zeros((2, 6, G, nwarps), np.int64)
+        edge[:, :4] = neg
+        for d in range(int((nt + no - 1).max())):
+            jb = d - i0
+            holds = (i0[None] < nt[:, None]) & (jb >= 0)[None] & (
+                (jb - (run - 1))[None] < no[:, None])  # (G, T)
+            live = holds.any(0)
+            warp_live = live.reshape(nwarps, 32).any(1)
+            fields = (m, x, y, bb, ba, oc)
+            nb_ = [np.concatenate([np.full((G, 1), neg if f < 4 else 0),
+                                   a[:, :-1, -1]], 1)
+                   for f, a in enumerate(fields)]
+            firsts = np.arange(1, nwarps) * 32  # a warp's first thread
+            for f in range(6):
+                nb_[f][:, firsts] = edge[(d + 1) % 2, f][:, :-1]
+            nb_[5][:, 0] = orow[:, d] if d < NoP else 0
+            nid = nb_.pop()
+            interior = (jb >= run) & (i0 >= 1) & (jb[None] < no[:, None]).all(0)
+            word = np.zeros((G, threads, run), np.int64)
+            new = [a.copy() for a in (m, x, y, bb, ba)]
+            for r in range(run - 1, -1, -1):
+                if r:
+                    lm, lx, ly, lb, la = (a[:, :, r - 1] for a in (m, x, y, bb,
+                                                                   ba))
+                    lo = oc[:, :, r - 1]
+                else:
+                    lm, lx, ly, lb, la = nb_
+                    lo = nid
+                i = lanes[:, r][None]
+                j = (d - lanes[:, r])[None]
+                s = np.where(tid[:, :, r] == lo, match, mismatch)
+                m_int = lb + s
+                y_int, yp = _max3(m[:, :, r] + goy + gey, x[:, :, r] + goy + gey,
+                                  y[:, :, r] + gey)
+                x_int, xp = _max3(lm + gox + gex, lx + gex, ly + gox + gex)
+                bv, av = _max3(m[:, :, r], x[:, :, r], y[:, :, r])
+                bad = (j < 0) | (j >= no[:, None])
+                row0, col0 = i == 0, j == 0
+                # an interior run has no boundary cell of any pair
+                assert not (interior[None] & (bad | row0 | col0)).any()
+                mv = np.where(bad, neg, np.where(row0, r0 * j, np.where(
+                    col0, c0 * i, m_int)))
+                xv = np.where(bad, neg, np.where(row0, r0 * j, np.where(
+                    col0, neg, x_int)))
+                yv = np.where(bad, neg, np.where(row0, neg, np.where(
+                    col0, c0 * i, y_int)))
+                for a, v in zip(new, (mv, xv, yv, bv, av)):
+                    a[:, :, r] = np.where(live[None], v, a[:, :, r])
+                word[:, :, r] = la | (xp << 2) | (yp << 4)
+            m, x, y, bb, ba = new
+            shifted = np.concatenate([nid[:, :, None], oc[:, :, :-1]], 2)
+            oc = np.where(live[None, :, None], shifted, oc)
+            lasts = np.arange(nwarps) * 32 + 31
+            for f, a in enumerate((m, x, y, bb, ba, oc)):
+                edge[d % 2, f] = np.where(warp_live[None], a[:, lasts, -1],
+                                          edge[d % 2, f])
+            for g in range(G):
+                if b0 + g >= B:
+                    continue
+                for k in np.nonzero(holds[g] & live)[0]:
+                    out[b0 + g, d, i0[k]:i0[k] + run] = word[g, k]
+    return out
+
+
+def _mode_inputs(mode, seed, B=5):
+    """t, o, params (numpy int32), nts, nos and the pairs of one of the
+    batched fill's modes, in one bucket: "shared_row" (own transcripts and
+    OCR rows, one scoring row), "per_pair_shared_feed" (one transcript and
+    one OCR row, a scoring row a pair: the grid) and "own_feeds" (own
+    rows and a scoring row a pair)."""
+    rng = random.Random(seed)
+    if mode == "per_pair_shared_feed":
+        pairs = [random_pair(rng, 90, 110)]
+    else:
+        pairs = [random_pair(rng, 30 + 17 * k, 120 - 19 * k)
+                 for k in range(B)]
+    t, o, nts, nos = nw_torch.lane_batch([(a + [" "], b + [" "])
+                                          for a, b in pairs])
+    nr = np.random.default_rng(seed)
+    rows = np.concatenate([nr.integers(1, 12, (B, 1)),
+                           -nr.integers(0, 10, (B, 5)),
+                           np.full((B, 2), -1)], axis=1)
+    if mode == "shared_row":
+        rows = rows[:1]
+    return t, o, rows.astype(np.int32), nts, nos, pairs
+
+
+BATCH_MODES = ["shared_row", "per_pair_shared_feed", "own_feeds"]
+
+
+@pytest.mark.parametrize("mode", BATCH_MODES)
+@pytest.mark.parametrize("run,G", [(1, 1), (1, 4), (2, 2), (2, 4), (4, 1),
+                                   (4, 2), (8, 1)])
+def test_group_route_model_matches_fill(mode, run, G):
+    """The group route modelled on the CPU (``group_fill``), with 5 pairs
+    in groups of G (a ragged last group where G does not divide 5), at each
+    (run, G) of nw_kernel.GROUPS and CTAs shaped by the largest Nt (several
+    warps at run 1 and 2), gives fill_reference's
+    pointer bytes on every valid cell, stores no byte of a row past L, and
+    checks on every diagonal that a run it takes as interior holds no
+    boundary cell."""
+    t, o, rows, nts, nos, _ = _mode_inputs(mode, run * 10 + G)
+    threads = -(-int(nts.max()) // (32 * run)) * 32
+    got = group_fill(t, o, rows, nts, nos, run, G, threads)
+    ref = nw_kernel.fill_reference(torch.from_numpy(t), torch.from_numpy(o),
+                                   torch.from_numpy(rows)).numpy()
+    for b in range(ref.shape[0]):
+        Nt, No = int(nts[0 if len(nts) == 1 else b]), int(
+            nos[0 if len(nos) == 1 else b])
+        np.testing.assert_array_equal(valid_cells(got[b], Nt, No),
+                                      valid_cells(ref[b], Nt, No))
+
+
+@pytest.mark.parametrize("mode", BATCH_MODES)
+def test_valid_cells_do_not_depend_on_the_padding(mode):
+    """The extent is exact: fill_reference on a bucket whose padding (ids
+    past Nt and No) is random gives, on every valid cell, the bytes of
+    fill_reference on the exact-size tensors (L = Nt, NoP = No) and of
+    nw_jax.fill_jax_packed, so a fill may stop at each pair's extent."""
+    t, o, rows, nts, nos, pairs = _mode_inputs(mode, 40)
+    nr = np.random.default_rng(41)
+    for a, n in ((t, nts), (o, nos)):
+        for b in range(len(a)):
+            a[b, n[0 if len(n) == 1 else b]:] = nr.integers(
+                0, 2**20, a.shape[1] - n[0 if len(n) == 1 else b])
+    B = max(len(t), len(o), len(rows))
+    got = nw_kernel.fill_batched(torch.from_numpy(t), torch.from_numpy(o),
+                                 torch.from_numpy(rows), nts, nos).numpy()
+    for b in range(B):
+        k = 0 if len(pairs) == 1 else b
+        Nt, No = int(nts[k]), int(nos[k])
+        tb, ob = t[0 if len(t) == 1 else b], o[0 if len(o) == 1 else b]
+        row = rows[0 if len(rows) == 1 else b]
+        exact = nw_kernel.fill_reference(
+            torch.from_numpy(tb[None, :Nt].copy()),
+            torch.from_numpy(ob[None, :No].copy()),
+            torch.from_numpy(row[None])).numpy()[0]
+        np.testing.assert_array_equal(valid_cells(got[b], Nt, No),
+                                      valid_cells(exact, Nt, No))
+        ta, oa = pairs[k]
+        ref = nw_jax.fill_jax_packed(ta + [" "], oa + [" "],
+                                     resolve_scoring(list(row[:6])))
+        np.testing.assert_array_equal(valid_cells(got[b], Nt, No),
+                                      valid_cells(ref, Nt, No))
 
 
 def _jax_walks(packed, nts, nos):

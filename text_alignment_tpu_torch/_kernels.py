@@ -146,8 +146,10 @@ def lib():
         L.ta_nw_fill.restype = i
         L.ta_nw_fill.argtypes = [p, p, p, p, i, i, i, i, p, i, p]
         L.ta_nw_fill_batched.restype = i
-        L.ta_nw_fill_batched.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p,
-                                         i, p]
+        L.ta_nw_fill_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                         i, i, i, i, i, p, i, p]
+        L.ta_nw_group_attrs.restype = i
+        L.ta_nw_group_attrs.argtypes = [i, i, i, i, p]
         L.ta_nw_traceback_batched.restype = i
         L.ta_nw_traceback_batched.argtypes = [p, p, p, p, i, i, i, i, p]
         L.ta_nw_tb_chase.restype = i

@@ -18,14 +18,21 @@ wire (B, 3 + L + NoP) int32 ``[k, xpt, ypt, ops...]``, of which ``ops[:k]``
 are defined; the kernel puts its window and miss counts in the two last
 slots (:func:`traceback_stats`).
 
-The fill kernel runs each pair as P = ceil(L / S) segments of S lanes, one
-CTA a segment, handing each segment's boundary to the next through global
-scratch (``csrc/nw_fill.cu``); :func:`fill_plan` picks S from the pair count
-and the card's SM count, and any L has a plan.
+The fill kernel has two routes (``csrc/nw_fill.cu``). The segmented route
+runs each pair as P = ceil(L / S) segments of S lanes, one CTA a segment,
+handing each segment's boundary to the next through global scratch;
+:func:`fill_plan` picks S from the pair count and the card's SM count, and
+any L has a plan. Where :func:`fill_plan` gives a pair one CTA, the group
+route runs G pairs a CTA, filling only each pair's extent (i < Nt,
+j < No, from the sizes the caller passes); :func:`group_plan` picks the
+lanes a thread, G and the threads a CTA.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -48,6 +55,13 @@ SEG_FLOOR = 128
 TB_SCHEDULE = dict(TH=256, TW=128, U=16, MD=48, MI=24, ALIGN=16)
 # L must be a multiple of the window's lanes, which every bucket is.
 TB_LANES = TB_SCHEDULE["TW"]
+# The group route's instantiations (lanes a thread, pairs a CTA): the
+# TA_NW_GROUPS of csrc/nw_fill.cu, each also built for one shared
+# transcript and OCR row when G > 1.
+GROUPS = ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (2, 4), (4, 1), (4, 2),
+          (8, 1))
+# An H100 SM: registers (allocated 256 a warp), threads and CTAs it holds.
+SM_REGS, SM_THREADS, SM_CTAS = 65536, 2048, 32
 
 
 def _first_max3(a, b, c):
@@ -60,11 +74,13 @@ def _first_max3(a, b, c):
 def fill_reference(t, o, params, S=None):
     """Plain anti-diagonal wavefront, the recurrence of
     ``nw_jax._fill_scan``: one Python step per diagonal, the pairs and the
-    lanes vectorized. ``params`` int32 runs in int32 (NEG = -2^30), float32
+    lanes vectorized, over the whole bucket (a one-row ``t``, ``o`` or
+    ``params`` is shared by every pair). ``params`` int32 runs in int32 (NEG = -2^30), float32
     in float32 (NEG = -1e30). ``S`` (A, A) of ``params``' dtype, when given,
     scores ``S[t_id, o_id]`` (the substitution-matrix form) instead of
     match/mismatch."""
-    B, L = t.shape
+    B = max(t.shape[0], o.shape[0], params.shape[0])
+    L = t.shape[1]
     NoP = o.shape[1]
     D = L + NoP - 1
     dt = params.dtype
@@ -182,27 +198,28 @@ def _check(name, tensor, dtype, shape, device):
 def _check_fill(what, t, o, params):
     if t.dim() != 2 or o.dim() != 2 or params.dim() != 2:
         raise ValueError(f"{what}: t, o and params must be 2-D")
-    B, L = t.shape
-    NoP = o.shape[1]
-    _check(f"{what}: t", t, torch.int32, (B, L), t.device)
+    B = max(t.shape[0], o.shape[0], params.shape[0])
+    L, NoP = t.shape[1], o.shape[1]
+    _check(f"{what}: t", t, torch.int32, (t.shape[0], L), t.device)
     _check(f"{what}: o", o, torch.int32, (o.shape[0], NoP), t.device)
     _check(f"{what}: params", params, torch.int32, (params.shape[0], 8),
            t.device)
     if B == 0 or L == 0 or NoP == 0:
         raise ValueError(f"{what}: empty input t {tuple(t.shape)} o "
                          f"{tuple(o.shape)}")
-    if o.shape[0] not in (1, B) or params.shape[0] not in (1, B):
-        raise ValueError(f"{what}: o and params need 1 or {B} rows, got "
-                         f"{o.shape[0]} and {params.shape[0]}")
+    rows = (t.shape[0], o.shape[0], params.shape[0])
+    if any(n not in (1, B) for n in rows):
+        raise ValueError(f"{what}: t, o and params need 1 or {B} rows, got "
+                         f"{rows}")
     return B, L, NoP
 
 
 def _plan(what, t, B, L, seg, run):
-    """(S, run) of a launch: :func:`fill_plan` on the tensor's card unless
-    ``seg`` (lanes a segment) or ``run`` (lanes a thread) is forced."""
+    """(S, run) of a segmented launch: :func:`fill_plan` on the tensor's
+    card unless ``seg`` (lanes a segment) or ``run`` (lanes a thread) is
+    forced."""
     if seg is None:
-        sms = torch.cuda.get_device_properties(t.device).multi_processor_count
-        seg = fill_plan(B, L, sms)[0]
+        seg = fill_plan(B, L, _sms(t.device))[0]
     run = _lanes_per_thread(seg) if run is None else run
     if run not in _RUNS or seg % run or seg // run > MAX_THREADS:
         raise ValueError(f"{what}: no CTA of {seg} lanes at {run} a thread")
@@ -214,47 +231,169 @@ def _plan(what, t, B, L, seg, run):
     return seg, run
 
 
-def fill_cuda(t, o, params, seg=None, run=None):
-    """Launch ``ta_nw_fill`` (one pair, B = 1) on PyTorch's current
-    stream, in segments of ``seg`` lanes, ``run`` lanes a thread (default:
-    :func:`fill_plan`)."""
-    B, L, NoP = _check_fill("nw_fill", t, o, params)
-    if B != 1 or o.shape[0] != 1 or params.shape[0] != 1:
-        raise ValueError("nw_fill takes one pair; use fill_batched for more")
-    seg, run = _plan("nw_fill", t, B, L, seg, run)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def resident_ctas(threads: int, regs: int) -> int:
+    """CTAs of ``threads`` threads (whole warps) at ``regs`` registers a
+    thread that one SM holds at once."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(SM_CTAS, SM_THREADS // threads,
+               SM_REGS // (warp_regs * (threads // 32)))
+
+
+def group_plan(B: int, Nt: int, L: int, sms: int, attrs: dict,
+               run: int | None = None, g: int | None = None):
+    """(run, G, threads) of a group-route launch of B pairs whose largest
+    transcript extent is Nt in a bucket of L lanes, on a card of ``sms``
+    SMs, or None when no instantiation takes it. ``attrs`` maps each
+    (run, G) of :data:`GROUPS` to the compiled kernel's (registers, spill
+    bytes, most threads a CTA) (:func:`group_attrs`); one that spills, that
+    would need more threads than it may have, or whose run does not divide
+    L is refused. ``run`` or ``g`` forces that value.
+
+    A CTA has ceil(Nt / (32 run)) whole warps; ceil(B / G) CTAs run in
+    waves of ``sms`` x the CTAs an SM holds (:func:`resident_ctas`). The
+    plan takes the fewest waves, one where it can, then the fewest cells a
+    thread a diagonal (run x G), then the fewest lanes a thread: the kernel
+    is bound by issue and latency, and at every shape
+    ``chip_nw_ablation.py`` swept a launch took longer the more cells a
+    thread held, unless they saved a wave (PERF.md)."""
+    best = None
+    for r, gg in GROUPS:
+        if (run is not None and r != run) or (g is not None and gg != g):
+            continue
+        if L % r or (r, gg) not in attrs:
+            continue
+        regs, spill, max_threads = attrs[(r, gg)]
+        threads = -(-Nt // (32 * r)) * 32
+        if spill or threads > max_threads:
+            continue
+        per_wave = sms * resident_ctas(threads, regs)
+        key = (-(-(-(-B // gg)) // per_wave), r * gg, r)
+        if best is None or key < best[0]:
+            best = (key, (r, gg, threads))
+    return None if best is None else best[1]
+
+
+_group_attrs: dict = {}
+
+
+def group_attrs(device, shared: bool) -> dict:
+    """{(run, G): (registers, spill bytes, most threads a CTA)} of the group
+    route's instantiations for one shared transcript and OCR row or not,
+    read from the compiled library (``ta_nw_group_attrs``) once a card."""
+    key = (device.index, shared)
+    if key not in _group_attrs:
+        lib = _kernels.lib()
+        out = (ctypes.c_int * 3)()
+        table = {}
+        for r, gg in GROUPS:
+            _kernels.check(lib.ta_nw_group_attrs(r, gg, int(shared),
+                                                 device.index or 0,
+                                                 ctypes.addressof(out)),
+                           "nw_fill group attributes")
+            table[(r, gg)] = tuple(out)
+        _group_attrs[key] = table
+    return _group_attrs[key]
+
+
+def _sizes(what, nts, nos, B, L, NoP) -> np.ndarray:
+    """(2, 1 or B) int32 [Nt; No] of the pairs, within the bucket; the
+    whole bucket when both are None."""
+    if nts is None and nos is None:
+        return np.array([[L], [NoP]], np.int32)
+    if nts is None or nos is None:
+        raise ValueError(f"{what}: give both nts and nos, or neither")
+    a = torch.as_tensor(nts).cpu().numpy().astype(np.int64).ravel()
+    b = torch.as_tensor(nos).cpu().numpy().astype(np.int64).ravel()
+    if a.shape != b.shape or a.size not in (1, B):
+        raise ValueError(f"{what}: nts and nos need 1 or {B} entries each, "
+                         f"got {a.size} and {b.size}")
+    if a.min() < 1 or a.max() > L or b.min() < 1 or b.max() > NoP:
+        raise ValueError(f"{what}: sizes outside 1..{L} x 1..{NoP}")
+    return np.stack([a, b]).astype(np.int32)
+
+
+def _launch(what, t, o, params, nts, nos, seg, run, group):
+    """Packed pointers of a fill launch on PyTorch's current stream: the
+    group route where :func:`fill_plan` gives a pair one CTA (or ``group``
+    is forced) and :func:`group_plan` has a plan, else the segmented
+    route."""
+    B, L, NoP = _check_fill(what, t, o, params)
     lib = _kernels.lib()
+    dev = t.device
+    out = torch.empty((B, L + NoP - 1, L), dtype=torch.uint8, device=dev)
+    stream = _kernels.stream_handle(dev)
+    if seg is None and (group is not None
+                        or fill_plan(B, L, _sms(dev))[0] == L):
+        sizes = _sizes(what, nts, nos, B, L, NoP)
+        shared = t.shape[0] == 1 and o.shape[0] == 1
+        plan = group_plan(B, int(sizes[0].max()), L, _sms(dev),
+                          group_attrs(dev, shared), run, group)
+        if plan is None and group is not None:
+            raise ValueError(f"{what}: no CTA of G = {group} (run {run}) "
+                             f"takes Nt = {int(sizes[0].max())} in L = {L}")
+        if plan is not None:
+            r, gg, threads = plan
+            # pinned, so the copy does not wait for the stream; held
+            # through the C call, as the scratch below
+            dsz = torch.from_numpy(sizes).pin_memory().to(dev,
+                                                          non_blocking=True)
+            code = lib.ta_nw_fill_batched(
+                t.data_ptr(), o.data_ptr(), params.data_ptr(),
+                dsz[0].data_ptr(), dsz[1].data_ptr(), out.data_ptr(), B, L,
+                NoP, t.shape[0], o.shape[0], params.shape[0], sizes.shape[1],
+                r, gg, threads, dev.index, stream, 0, None)
+            _kernels.check(code, f"{what} launch")
+            return out
+    seg, run = _plan(what, t, B, L, seg, run)
+    t = t.expand(B, L).contiguous()
     # the hand-off scratch stays referenced until the C call has returned:
     # ctypes releases the GIL, and a freed block may go to another thread
     # issuing on the same stream
     scratch = torch.empty(lib.ta_nw_fill_scratch_bytes(B, L, NoP, seg),
-                          dtype=torch.uint8, device=t.device)
-    out = torch.empty((1, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
-    code = lib.ta_nw_fill(
-        t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), L, NoP,
-        run, t.device.index, _kernels.stream_handle(t.device), seg,
-        scratch.data_ptr())
-    _kernels.check(code, "nw_fill launch")
+                          dtype=torch.uint8, device=dev)
+    if what == "nw_fill":
+        code = lib.ta_nw_fill(
+            t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), L,
+            NoP, run, dev.index, stream, seg, scratch.data_ptr())
+    else:
+        code = lib.ta_nw_fill_batched(
+            t.data_ptr(), o.data_ptr(), params.data_ptr(), None, None,
+            out.data_ptr(), B, L, NoP, B, o.shape[0], params.shape[0], 1, run,
+            0, 0, dev.index, stream, seg, scratch.data_ptr())
+    _kernels.check(code, f"{what} launch")
+    return out
+
+
+def fill_cuda(t, o, params, seg=None, run=None):
+    """Launch the fill of one pair (B = 1) on PyTorch's current stream: a
+    pair of at most 1024 lanes on the group route over its whole bucket, a
+    longer one in segments of ``seg`` lanes, ``run`` lanes a thread
+    (default: :func:`fill_plan`) through ``ta_nw_fill``."""
+    B, L, NoP = _check_fill("nw_fill", t, o, params)
+    if B != 1:
+        raise ValueError("nw_fill takes one pair; use fill_batched for more")
+    out = _launch("nw_fill", t, o, params, None, None, seg, run, None)
     _kernels.launches["nw_fill"] += 1
     return out
 
 
-def fill_batched_cuda(t, o, params, seg=None, run=None):
-    """Launch ``ta_nw_fill_batched``: one OCR row shared by every pair
-    (``shared_feed``) when ``o`` has one row, one scoring row per pair
-    (``per_pair``) when ``params`` has B rows; segments of ``seg`` lanes,
-    ``run`` lanes a thread (default: :func:`fill_plan`)."""
-    B, L, NoP = _check_fill("nw_fill_batched", t, o, params)
-    seg, run = _plan("nw_fill_batched", t, B, L, seg, run)
-    lib = _kernels.lib()
-    scratch = torch.empty(lib.ta_nw_fill_scratch_bytes(B, L, NoP, seg),
-                          dtype=torch.uint8, device=t.device)  # held, as above
-    out = torch.empty((B, L + NoP - 1, L), dtype=torch.uint8, device=t.device)
-    code = lib.ta_nw_fill_batched(
-        t.data_ptr(), o.data_ptr(), params.data_ptr(), out.data_ptr(), B, L,
-        NoP, run, int(params.shape[0] == B and B > 1),
-        int(o.shape[0] == 1), t.device.index,
-        _kernels.stream_handle(t.device), seg, scratch.data_ptr())
-    _kernels.check(code, "nw_fill_batched launch")
+def fill_batched_cuda(t, o, params, nts=None, nos=None, seg=None, run=None,
+                      group=None):
+    """Launch ``ta_nw_fill_batched`` on PyTorch's current stream. ``t``,
+    ``o`` and ``params`` have 1 or B rows; a one-row ``t`` or ``o`` is
+    every pair's (``o``: ``shared_feed``; a one-row ``t`` and ``o`` are
+    carried once a CTA on the group route), B rows of ``params`` are
+    ``per_pair``. ``nts``, ``nos`` (1 or B sizes, host or card; default the
+    whole bucket) bound the cells the group route fills: the bytes of cells
+    with i >= Nt or j >= No are unspecified. Forced: ``seg`` (the
+    segmented route, lanes a segment), ``run`` (lanes a thread) and
+    ``group`` (the group route, pairs a CTA); default :func:`fill_plan` and
+    :func:`group_plan`."""
+    out = _launch("nw_fill_batched", t, o, params, nts, nos, seg, run, group)
     _kernels.launches["nw_fill_batched"] += 1
     return out
 
@@ -274,11 +413,13 @@ def fill(t, o, params):
     return fill_reference(t, o, params)
 
 
-def fill_batched(t, o, params):
+def fill_batched(t, o, params, nts=None, nos=None):
     """Packed pointers of B pairs of one bucket: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (filling each pair's extent ``nts`` x ``nos`` when given), the
+    plain version on CPU tensors (the whole bucket; the sizes are not
+    read)."""
     if _device_type("nw_fill_batched", t) == "cuda":
-        return fill_batched_cuda(t, o, params)
+        return fill_batched_cuda(t, o, params, nts, nos)
     return fill_reference(t, o, params)
 
 

@@ -22,8 +22,9 @@ from .scoring import BOUNDARY_GAP_EXTEND
 from .traceback import DensePtrView, traceback
 
 # Packed pointers one batched fill may hold on the card at once (4 GiB of
-# its 80 GB): the 2400^2 grid (D * L = 5119 * 2560 B per combination) runs
-# 327 combinations per launch, a chant-size grid all 729 in one.
+# its 80 GB): at most 327 combinations of the 2400^2 grid (D * L = 5119 *
+# 2560 B per combination) a launch, so its 729 rows run as three launches
+# of 243; a chant-size grid runs all 729 in one.
 PTR_BUDGET = 4 << 30
 
 
@@ -200,6 +201,14 @@ def _per_launch(L: int, NoP: int) -> int:
     return max(1, PTR_BUDGET // ((L + NoP - 1) * L))
 
 
+def grid_step(n: int, L: int, NoP: int) -> int:
+    """Rows a launch of an n-row grid in an (L, NoP) bucket: the fewest
+    launches within ``PTR_BUDGET``, their rows as equal as can be (the last
+    may be smaller), so each launch fills the card alike."""
+    launches = max(1, -(-n // _per_launch(L, NoP)))
+    return max(1, -(-n // launches))
+
+
 def align_pairs(pairs, sc, min_device_cells: int | None = None,
                 device=None):
     """Many (transcript, ocr) pairs under one integer match/mismatch
@@ -239,7 +248,7 @@ def align_pairs(pairs, sc, min_device_cells: int | None = None,
             t, o, nts, nos = lane_batch([prepared[i] for i in chunk])
             packed = nw_kernel.fill_batched(torch.from_numpy(t).to(device),
                                             torch.from_numpy(o).to(device),
-                                            params)
+                                            params, nts, nos)
             ops, k, xpt, ypt = _walk(packed, nts, nos, device)
             del packed
             for bi, i in enumerate(chunk):
@@ -253,9 +262,10 @@ def align_grid(transcript, ocr, params_list, device=None):
     [match, mismatch, gox, goy, gex, gey], the reference's boundary gap
     extend on both axes (``nw_jax.align_grid_jax`` without a mesh): the
     729-combination grid search. Every combination of a launch reads the
-    one OCR row (``shared_feed``) and its own scoring row (``per_pair``);
-    the combination axis is cut into launches whose packed pointers stay
-    within ``PTR_BUDGET``. Returns (tra_align, ocr_align) per row.
+    one transcript row and the one OCR row (``shared_feed``) and its own
+    scoring row (``per_pair``); the combination axis is cut into equal
+    launches whose packed pointers stay within ``PTR_BUDGET``
+    (:func:`grid_step`). Returns (tra_align, ocr_align) per row.
     Sentinels are appended here. ``device``: None means the card
     (:func:`.api.resolve_device`)."""
     from .api import resolve_device
@@ -273,15 +283,14 @@ def align_grid(transcript, ocr, params_list, device=None):
     rows = np.concatenate(
         [p6, np.full((len(p6), 2), BOUNDARY_GAP_EXTEND, np.int64)],
         axis=1).astype(np.int32)
-    step = min(len(rows), _per_launch(L, NoP))
-    t = torch.from_numpy(_ext(t_ids, L)).to(device)[None].expand(step, L)
-    t = t.contiguous()
+    step = grid_step(len(rows), L, NoP)
+    t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
     o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
     results = []
     for c0 in range(0, len(rows), step):
         pr = torch.from_numpy(rows[c0:c0 + step]).to(device)
         n = pr.shape[0]
-        packed = nw_kernel.fill_batched(t[:n], o, pr)
+        packed = nw_kernel.fill_batched(t, o, pr, [Nt], [No])
         ops, k, xpt, ypt = _walk(packed, [Nt] * n, [No] * n, device)
         del packed
         for b in range(n):
