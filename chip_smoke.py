@@ -15,9 +15,10 @@ Phases, each printing one line (any failure exits non-zero):
      the other batch tiles; the wide route (ns = 256, seeded weights)
      against its plain version on the folio's first 48 frames, then its ms
      beside cuDNN's torch.nn.LSTM(48, 256) on the folio's frames;
-  4. the normalizer tail kernel against its plain version on the card, on
-     the folio's own h-gauss output; bar: ink counts exact, center within
-     one row, >= 99% of valid columns identical;
+  4. the normalizer tail kernel against its plain version on the card, bit
+     for bit (center, dsum, dcnt), on the folio's own h-gauss output and
+     on the gate strips of phase 14; at each, every launch's grid, threads
+     and shared bytes, kernel ms (CUDA events), plain ms and bound;
   5. the slice: process() on a full-size synthetic folio (2000 x 1600 px,
      11 lines, packed at B = 12, Hp = 96, Wp = 1536) with a random-weight
      .pyrnn.gz (ni = 48, ns = 100): one warm-up call, then five measured
@@ -97,9 +98,9 @@ Phases, each printing one line (any failure exits non-zero):
      to process()'s JSON under the same setting; the warm-up's ms, the
      drain's ms per job and its split by route;
   17. the launch profiles (--profile, below) in a child process: the
-     device time of each launch of one CC pass, the chain, the table and
-     the full chain, and at most 4 launches a CC pass and the table, 13 for
-     the chain and 4 for the full chain.
+     device time of each launch of one CC pass, the chain, the table, the
+     tail and the full chain, and at most 4 launches a CC pass and the
+     table, 13 for the chain, 3 for the tail and 4 for the full chain.
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -109,8 +110,8 @@ have, with its chain floor beside), and last the device JSON line. Weights and p
 seeds. Needs no network and no JAX.
 
 With --profile it runs phases 1 and 2, then only the launch profiles of
-the CC kernels (phase 11's pages) and the full chain (phase 14's folio
-strips) and the device timeline of one process_batch call in mode (b)
+the CC kernels (phase 11's pages), the default tail and the full chain
+(the folio's strips of phases 4 and 14) and the device timeline of one process_batch call in mode (b)
 (with its garbage-collector time), and prints last one JSON line of the
 launch counts; it needs only the package's entry points, so it profiles
 an older tree of the port from a copy placed in that tree.
@@ -150,7 +151,8 @@ from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.codec import Codec
 from text_alignment_tpu_torch.models.lineest_kernel import (
-    center_full_cuda, center_full_reference, tail_cuda, tail_reference)
+    center_full_cuda, center_full_reference, tail_cuda, tail_plan,
+    tail_reference)
 from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan_cuda, bidir_scan_reference)
@@ -182,6 +184,7 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM, published
 ALU_OPS_PER_MS = 67e12 / 1e3      # float32 outside the tensor cores
 N_FOLIOS = 8
 CC_PASS_LAUNCHES = 4  # launches of one CC filter pass or table, at most
+TAIL_LAUNCHES = 3     # launches of one default tail call
 FULL_LAUNCHES = 4     # launches of one full-chain call
 
 
@@ -427,32 +430,70 @@ def phase_lstm_wide(fi, dev):
           f"{b['bound_by']}")
 
 
-def phase_tail(fi):
-    args = (fi["sm"], fi["temp"], fi["hs"], fi["ws"], fi["k2"])
-    c1, s1, n1 = tail_cuda(*args)
-    c0, s0, n0 = tail_reference(*args)
+def tail_inputs(packed_meta, dev):
+    """The default tail's inputs for a packed strip batch on the card, as
+    normalize_batch_device builds them: sm, the ink mask, (h, w) and the
+    smoothing taps."""
+    grey, hs, ws = _unpack_bits(torch.from_numpy(packed_meta).to(dev))
+    _, _, _, sm, temp, k2 = tle.center_inputs(grey, hs, ws, onebit=True)
+    return sm, temp, hs, ws, k2
+
+
+def tail_work(sm, temp, hs, ws, k2):
+    """The bytes and operations the tail needs on these strips: sm and the
+    ink mask inside each strip's (h, w) read once, the taps, (h, w) and the
+    outputs; per strip, the two windowed means, v and the argmax over
+    h x w, and per column of the batch the smoothing over the strip's
+    nonzero taps (a pair: an add, a multiply and an add)."""
+    B, _, Wp = sm.shape
+    k2 = k2.cpu()
+    ops = nbytes = 0
+    for b, (h, w) in enumerate(zip(hs.tolist(), ws.tolist())):
+        n_taps = int((k2[b] != 0).sum())
+        ops += 4 * h * w + Wp * (3 * (n_taps // 2) + 1)
+        nbytes += 5 * h * w
+    nbytes += 8 * k2.numel() + 8 * B + 4 * B * Wp + 8 * B
+    return nbytes, ops
+
+
+def tail_check(name, args, sms):
+    """The tail on one strip batch against its plain version, bit for bit
+    (center, dsum, dcnt); each launch's plan, kernel and plain ms, bound."""
+    got = tail_cuda(*args)
+    ref = tail_reference(*args)
     torch.cuda.synchronize()
-    Wp = c1.shape[1]
-    valid = torch.arange(Wp, device=c1.device)[None, :] < fi["ws"][:, None]
-    d = (c1 - c0).abs()[valid]
-    err = int(d.max().item()) if d.numel() else 0
-    same = float((d == 0).float().mean().item()) if d.numel() else 1.0
+    same = [torch.equal(g, r) for g, r in zip(got, ref)]
+    err = max(float((g.long() - r.long()).abs().max().item())
+              for g, r in zip(got, ref))
+    sm, k2 = args[0], args[4]
+    B, Hp, Wp = sm.shape
+    plan = "; ".join(
+        f"{p['pass']} {p['grid'][0]}x{p['grid'][1]} = "
+        f"{p['grid'][0] * p['grid'][1]} CTAs of {p['threads']} threads, "
+        f"{p['regs']} registers, {p['smem']} shared bytes"
+        for p in tail_plan(B, Hp, Wp, k2.shape[1], sm.device))
     ms = cuda_ms(lambda: tail_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: tail_reference(*args), 5)
-    B, Hp, _ = fi["sm"].shape
-    print(f"lineest_tail: B={B} Hp={Hp} Wp={Wp} center max |d|={err} "
-          f"identical columns {same:.5f} dcnt exact "
-          f"{bool(torch.equal(n1, n0))} dsum max |d|="
-          f"{int((s1 - s0).abs().max().item())} kernel {ms:.3f} ms "
-          f"plain {plain_ms:.3f} ms")
-    check(torch.equal(n1, n0), "lineest_tail: ink counts differ")
-    check(err <= 1, f"lineest_tail: center off by {err} rows")
-    check(same >= 0.99, f"lineest_tail: only {same:.4f} of columns agree")
-    K2 = fi["k2"].shape[1]
-    nbytes = B * Hp * Wp * 5 + B * Wp * 4 + fi["k2"].numel() * 8 + 16 * B
-    ops = 4 * B * Hp * Wp + 2 * B * Wp * K2
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, ops), "library_ms": None}
+    b = bound(*tail_work(*args))
+    print(f"lineest_tail: {name} strips B={B} Hp={Hp} Wp={Wp} "
+          f"K2={k2.shape[1]}: center, dsum, dcnt identical to the plain "
+          f"version {same}; launches [{plan}] on {sms} SMs; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} ms by "
+          f"{b['bound_by']}")
+    check(all(same), f"lineest_tail differs from its plain version on the "
+          f"{name} strips (max |d| {err})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
+def phase_tail(rec, fi, strips, dev):
+    """Phase 4: the tail against its plain version on the folio's strips
+    and on the gate strips; the folio's figures go into the kernels line."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    folio = tail_check("folio", (fi["sm"], fi["temp"], fi["hs"], fi["ws"],
+                                 fi["k2"]), sms)
+    tail_check("gate", tail_inputs(rec._pack_strips(strips)[0], dev), sms)
+    return folio
 
 
 def run_process(page, path, timer=None):
@@ -1668,6 +1709,8 @@ def profile_only(dev) -> int:
     rec = SeqRecognizer(tl.params_from_np(params_np), codec,
                         normalize_on_device=True, device=dev)
     fi = folio_inputs(rec, [s.img for s in strips], dev)
+    launches["lineest_tail"] = launch_split("lineest_tail", lambda: tail_cuda(
+        fi["sm"], fi["temp"], fi["hs"], fi["ws"], fi["k2"]))
     args, _ = full_inputs(fi["packed_meta"], dev)
     launches["lineest_full"] = launch_split(
         "lineest_full", lambda: center_full_cuda(*args))
@@ -1698,8 +1741,9 @@ def phase_profile():
     """Phase 17: ``--profile`` in a child process (in this process, after
     earlier profiler windows, the profiler lost whole windows of events):
     its lines, and at most CC_PASS_LAUNCHES launches a CC pass and table,
-    3 CC_PASS_LAUNCHES + 1 for the chain, FULL_LAUNCHES for the full
-    chain (a lost event can only lower a count)."""
+    3 CC_PASS_LAUNCHES + 1 for the chain, TAIL_LAUNCHES for the tail,
+    FULL_LAUNCHES for the full chain (a lost event can only lower a
+    count)."""
     child = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--profile"],
         capture_output=True, text=True, timeout=400,
@@ -1716,11 +1760,12 @@ def phase_profile():
     check(n["cc_filter"] <= CC_PASS_LAUNCHES
           and n["cc_table"] <= CC_PASS_LAUNCHES
           and n["cc_clean"] <= 3 * CC_PASS_LAUNCHES + 1
+          and 1 <= n["lineest_tail"] <= TAIL_LAUNCHES
           and 1 <= n["lineest_full"] <= FULL_LAUNCHES,
           f"launches over the limits: {n}")
     print(f"profile: launches a call {n} (limits: {CC_PASS_LAUNCHES} a CC "
           f"pass and table, {3 * CC_PASS_LAUNCHES + 1} the chain, "
-          f"{FULL_LAUNCHES} the full chain)")
+          f"{TAIL_LAUNCHES} the tail, {FULL_LAUNCHES} the full chain)")
 
 
 def main(argv) -> int:
@@ -1741,8 +1786,9 @@ def main(argv) -> int:
     rec = SeqRecognizer(tl.params_from_np(params_np), codec,
                         normalize_on_device=True, device=dev)
     fi = folio_inputs(rec, inks, dev)
+    strips = gate_strips()
     stats = {"lstm_scan": phase_lstm(rec, fi, dev),
-             "lineest_tail": phase_tail(fi)}
+             "lineest_tail": phase_tail(rec, fi, strips, dev)}
 
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "folio.pyrnn.gz")
@@ -1774,7 +1820,6 @@ def main(argv) -> int:
     launches.update({k: batch_launches[k]
                      for k in ("cc_filter", "cc_clean", "cc_table")})
 
-    strips = gate_strips()
     stats["lineest_full"] = phase_full(rec, fi, strips, dev)
     phase_full_gate(params_np, codec, strips, dev)
     serve_launches = phase_serve(batch_pages, path, dev, tmp.name)

@@ -18,12 +18,13 @@ from text_alignment_tpu_torch.align import nw_kernel, nw_torch
 from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.lineest_kernel import (
-    center_full, center_full_cuda, center_full_reference, tail_cuda,
-    tail_reference)
+    CENTER_TILE, center_full, center_full_cuda, center_full_reference, tail,
+    tail_cuda, tail_plan, tail_reference)
 from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_cuda, bidir_scan_reference)
 
+from lineest_tail_model import TAIL_CASES, tail_case
 from nw_window_model import TB_KERNEL, windowed_walk
 
 pytestmark = pytest.mark.cuda
@@ -91,24 +92,46 @@ def test_lstm_scan_plan_fits(cuda, B, ns):
             else 0 <= a["quads_in_global"] < lk.quads(ns))
 
 
-@pytest.mark.parametrize("B,Hp,Wp", [(12, 96, 1536), (5, 64, 512)])
-def test_lineest_tail_kernel_matches_plain(cuda, B, Hp, Wp):
-    rng = np.random.default_rng(Hp)
-    hs = rng.integers(Hp // 2, Hp + 1, B).astype(np.int32)
-    ws = rng.integers(Wp // 8, Wp + 1, B).astype(np.int32)
-    hs[-1] = ws[-1] = 0  # a padding strip of the pack ladder
-    grey = (rng.random((B, Hp, Wp)) > 0.12).astype(np.uint8)
-    hs_t, ws_t = torch.from_numpy(hs).to(cuda), torch.from_numpy(ws).to(cuda)
-    _, _, _, sm, temp, k2 = tle.center_inputs(
-        torch.from_numpy(grey).to(cuda), hs_t, ws_t, onebit=True)
-    c1, s1, n1 = tail_cuda(sm, temp, hs_t, ws_t, k2)
-    c0, s0, n0 = tail_reference(sm, temp, hs_t, ws_t, k2)
+@pytest.mark.parametrize("B,Hp,Wp,kind", TAIL_CASES)
+def test_lineest_tail_kernel_matches_plain(cuda, B, Hp, Wp, kind):
+    """Bit for bit (center, dsum, dcnt), as the kernel's contract says; the
+    cases are the CPU model's (tests/lineest_tail_model.py), which equals
+    the plain version on each of them."""
+    args = [t.to(cuda) for t in tail_case(B, Hp, Wp, kind)]
+    before = _kernels.launches["lineest_tail"]
+    got = tail(*args)
+    assert _kernels.launches["lineest_tail"] == before + 1
+    ref = tail_reference(*args)
     torch.cuda.synchronize()
-    assert torch.equal(n1, n0)
-    valid = torch.arange(Wp, device=cuda)[None, :] < ws_t[:, None]
-    d = (c1 - c0).abs()[valid]
-    assert d.max().item() <= 1
-    assert (d == 0).float().mean().item() >= 0.99
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_lineest_tail_plan_fills_the_card(cuda):
+    """At the folio's batch (B = 12, Hp = 96, Wp = 1536) every launch of
+    the tail has a CTA for each SM; the center pass tiles CENTER_TILE
+    columns; the shared bytes fit one block."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    K2 = 2 * int(4 * 0.3 * 96 + 0.5) + 1
+    plan = tail_plan(12, 96, 1536, K2, cuda)
+    assert [p["pass"] for p in plan] == ["A", "B", "C"]
+    for p in plan:
+        assert p["grid"][0] * p["grid"][1] >= sms
+        assert p["smem"] <= _kernels.SMEM_LIMIT
+    assert plan[2]["grid"] == (1536 // CENTER_TILE, 12)
+    assert plan[2]["threads"] == CENTER_TILE
+
+
+def test_lineest_tail_rejects_bad_inputs(cuda):
+    sm, temp, hs, ws, k2 = (t.to(cuda) for t in tail_case(3, 32, 256))
+    with pytest.raises(ValueError):
+        tail_cuda(sm.double(), temp, hs, ws, k2)
+    with pytest.raises(ValueError):  # an even tap count
+        tail_cuda(sm, temp, hs, ws, k2[:, :-1].contiguous())
+    # Wp = 60,000: pass B's row of Wp floats exceeds shared memory
+    big = torch.zeros((1, 8, 60000), device=cuda)
+    with pytest.raises(ValueError):
+        tail_cuda(big, big.to(torch.uint8), hs[:1], ws[:1], k2[:1, :49])
 
 
 def _full_inputs(dev, B, Hp, Wp, seed, size=None):

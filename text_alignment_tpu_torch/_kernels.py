@@ -131,14 +131,16 @@ def lib():
         L.ta_lstm_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         L.ta_lstm_scan_attrs.restype = i
         L.ta_lstm_scan_attrs.argtypes = [i, i, i, i, p]
+        L.ta_lineest_tail_plan.restype = i
+        L.ta_lineest_tail_plan.argtypes = [i, i, i, i, i, p]
         L.ta_lineest_tail.restype = i
-        L.ta_lineest_tail.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p,
+        L.ta_lineest_tail.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p,
                                       p, i, p]
         L.ta_lineest_full_smem.restype = ctypes.c_size_t
         L.ta_lineest_full_smem.argtypes = [i, i, i]
         L.ta_lineest_full.restype = i
         L.ta_lineest_full.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p,
-                                      p, p, p, i, p]
+                                      p, p, p, p, i, p]
         L.ta_nw_fill_smem.restype = ctypes.c_size_t
         L.ta_nw_fill_smem.argtypes = [i, i]
         L.ta_nw_fill_scratch_bytes.restype = ctypes.c_size_t

@@ -49,8 +49,8 @@
 //
 // Layouts: temp (B, Hp, Wp) u8 (ink where != 0), w0 (B, Hp, Hp) f32,
 // k1 (B, K1) f32 with K1 odd, hs/ws (B,) i32, k2 (B, K2) f64, sm (B, Hp, Wp)
-// f32 and scratch (B, Hp, Wp) f32 (the tail's), center (B, Wp) i32,
-// dsum/dcnt (B,) i32.
+// f32, scratch (B, Hp, Wp) f32 and keys (B, Wp) u64 (the tail's), center
+// (B, Wp) i32, dsum/dcnt (B,) i32.
 
 #include <cuda_runtime.h>
 
@@ -241,7 +241,8 @@ extern "C" int ta_lineest_full(const unsigned char* temp, const float* w0,
                                const float* k1, const int* hs, const int* ws,
                                const double* k2, int B, int Hp, int Wp,
                                int K1, int K2, float* scratch, float* sm,
-                               int* center, int* dsum, int* dcnt, int device,
+                               unsigned long long* keys, int* center,
+                               int* dsum, int* dcnt, int device,
                                void* stream) {
     // this library links its own CUDA runtime: select PyTorch's device
     cudaError_t e = cudaSetDevice(device);
@@ -265,5 +266,5 @@ extern "C" int ta_lineest_full(const unsigned char* temp, const float* w0,
     if ((e = cudaGetLastError())) return (int)e;
 
     return ta_lineest_tail(sm, temp, hs, ws, k2, B, Hp, Wp, K2, scratch,
-                           center, dsum, dcnt, device, stream);
+                           keys, center, dsum, dcnt, device, stream);
 }

@@ -25,10 +25,16 @@ in plain torch, with the general ``mod 2w`` reflect form; its smoothing is
 float32, so the two centers can differ by one row on a plateau). Every sum of
 the plain versions runs in the order of the kernels, with each product and
 sum rounded on its own, so kernel and plain version agree bit for bit on the
-card: the argmax and the int truncations are knife edges.
+card: the argmax and the int truncations are knife edges. Where the kernel
+computes otherwise, the result is the same bits for a reason the kernel's
+source states: its argmax is a max of 64-bit keys (order-free), its
+smoothing skips only taps that are exact zeros, and its MAD sums integers.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +43,10 @@ from .. import _kernels
 from .._kernels import SMEM_LIMIT
 
 _NEG = -1e30
-_STATIC_SMEM = 1024 + 16  # the passes' static arrays, at most
-
+_FULL_STATIC_SMEM = 8  # ta_full_vh's static array
 
 _ROW_THREADS = 256  # TA_ROW_THREADS of csrc/lineest_tail.cu
+CENTER_TILE = 128   # TA_CENTER_T: columns a CTA of the tail's center pass
 
 
 def windowed_mean_h(x, size):
@@ -155,6 +161,38 @@ def tail_reference(sm, temp, hs, ws, k2):
     return center, dsum, dcnt
 
 
+def tail_plan(B, Hp, Wp, K2, device=None):
+    """The tail's three launches as ``csrc/lineest_tail.cu`` plans them
+    (``ta_lineest_tail_plan``): for pass A, B and C, the grid, the threads
+    a CTA, the shared bytes a CTA (dynamic and static) and the registers a
+    thread."""
+    out = (ctypes.c_int * 15)()
+    _kernels.check(_kernels.lib().ta_lineest_tail_plan(
+        B, Hp, Wp, K2, torch.device(device or "cuda").index or 0, out),
+        "lineest_tail plan")
+    return [{"pass": name, "grid": (out[5 * k], out[5 * k + 1]),
+             "threads": out[5 * k + 2], "smem": out[5 * k + 3],
+             "regs": out[5 * k + 4]} for k, name in enumerate("ABC")]
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_smem(Hp, Wp, K2, index):
+    """The most shared bytes a CTA of the tail's launches takes."""
+    return max(p["smem"] for p in tail_plan(1, Hp, Wp, K2,
+                                            torch.device("cuda", index)))
+
+
+def _tail_buffers(B, Hp, Wp, dev):
+    """(scratch, keys, center, dsum, dcnt): the tail's scratch u (B, Hp, Wp)
+    f32 and argmax keys (B, Wp) u64 (int64 storage), and its outputs; the
+    caller holds them until the launch has run."""
+    return (torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev),
+            torch.empty((B, Wp), dtype=torch.int64, device=dev),
+            torch.empty((B, Wp), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev))
+
+
 def tail_cuda(sm, temp, hs, ws, k2):
     """Launch ``csrc/lineest_tail.cu`` on PyTorch's current stream."""
     B, Hp, Wp = sm.shape
@@ -175,20 +213,16 @@ def tail_cuda(sm, temp, hs, ws, k2):
     if B == 0 or K2 % 2 == 0:
         raise ValueError(f"lineest_tail: bad shapes sm {tuple(sm.shape)}, "
                          f"k2 {tuple(k2.shape)}")
-    smem = max(4 * Hp * 32, 4 * Wp, 8 * K2 + 4 * Wp)
-    if smem > SMEM_LIMIT - _STATIC_SMEM:
+    smem = _tail_smem(Hp, Wp, K2, dev.index)
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"lineest_tail: (Hp, Wp, K2) = ({Hp}, {Wp}, {K2}) needs {smem} "
             f"bytes of shared memory, over what one block can use")
-    scratch = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
-    center = torch.empty((B, Wp), dtype=torch.int32, device=dev)
-    dsum = torch.empty((B,), dtype=torch.int32, device=dev)
-    dcnt = torch.empty((B,), dtype=torch.int32, device=dev)
-    L = _kernels.lib()
-    code = L.ta_lineest_tail(
+    scratch, keys, center, dsum, dcnt = _tail_buffers(B, Hp, Wp, dev)
+    code = _kernels.lib().ta_lineest_tail(
         sm.data_ptr(), temp.data_ptr(), hs.data_ptr(), ws.data_ptr(),
-        k2.data_ptr(), B, Hp, Wp, K2, scratch.data_ptr(), center.data_ptr(),
-        dsum.data_ptr(), dcnt.data_ptr(), dev.index,
+        k2.data_ptr(), B, Hp, Wp, K2, scratch.data_ptr(), keys.data_ptr(),
+        center.data_ptr(), dsum.data_ptr(), dcnt.data_ptr(), dev.index,
         _kernels.stream_handle(dev))
     _kernels.check(code, "lineest_tail launch")
     _kernels.launches["lineest_tail"] += 1
@@ -264,23 +298,20 @@ def center_full_cuda(temp, w0, k1, hs, ws, k2):
         raise ValueError(f"lineest_full: bad shapes temp {tuple(temp.shape)}, "
                          f"k1 {tuple(k1.shape)}, k2 {tuple(k2.shape)}")
     L = _kernels.lib()
-    smem = max(int(L.ta_lineest_full_smem(Hp, Wp, K1)),
-               4 * Hp * 32, 4 * Wp, 8 * K2 + 4 * Wp)
-    if smem > SMEM_LIMIT - _STATIC_SMEM:
+    smem = max(int(L.ta_lineest_full_smem(Hp, Wp, K1)) + _FULL_STATIC_SMEM,
+               _tail_smem(Hp, Wp, K2, dev.index))
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"lineest_full: (Hp, Wp, K1, K2) = ({Hp}, {Wp}, {K1}, {K2}) "
             f"needs {smem} bytes of shared memory, over what one block can "
             f"use")
-    scratch = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
+    scratch, keys, center, dsum, dcnt = _tail_buffers(B, Hp, Wp, dev)
     sm = torch.empty((B, Hp, Wp), dtype=torch.float32, device=dev)
-    center = torch.empty((B, Wp), dtype=torch.int32, device=dev)
-    dsum = torch.empty((B,), dtype=torch.int32, device=dev)
-    dcnt = torch.empty((B,), dtype=torch.int32, device=dev)
     code = L.ta_lineest_full(
         temp.data_ptr(), w0.data_ptr(), k1.data_ptr(), hs.data_ptr(),
         ws.data_ptr(), k2.data_ptr(), B, Hp, Wp, K1, K2, scratch.data_ptr(),
-        sm.data_ptr(), center.data_ptr(), dsum.data_ptr(), dcnt.data_ptr(),
-        dev.index, _kernels.stream_handle(dev))
+        sm.data_ptr(), keys.data_ptr(), center.data_ptr(), dsum.data_ptr(),
+        dcnt.data_ptr(), dev.index, _kernels.stream_handle(dev))
     _kernels.check(code, "lineest_full launch")
     _kernels.launches["lineest_full"] += 1
     return center, dsum, dcnt
