@@ -100,7 +100,23 @@ Phases, each printing one line (any failure exits non-zero):
   17. the launch profiles (--profile, below) in a child process: the
      device time of each launch of one CC pass, the chain, the table, the
      tail and the full chain, and at most 4 launches a CC pass and the
-     table, 13 for the chain, 3 for the tail and 4 for the full chain.
+     table, 13 for the chain, 3 for the tail and 4 for the full chain;
+  18. training on the card (models/train.py) on the corpus of
+     tests/test_train_quality.py (two pages of seeds 200 and 201, every
+     line, ni = 48, ns = 100): (a) one step from the same seeded weights
+     and batch on the card and on the CPU, the loss to 1e-5 relative and
+     the gradients to 1e-4 x their global norm; (b) the test's recipe (lr
+     5e-3, at most 700 steps, stop at loss < 0.08) from Trainer(seed=1)'s
+     weights (the JAX trainer's for seed 1), then the held-out page (seed 990) decoded by SeqRecognizer
+     on the card with the device normalizer, process()'s setting for
+     backend="hybrid": lstm_scan and lineest_tail launched, character
+     accuracy >= 0.85, the CPU decode of the same weights identical; the
+     mean position error beside the test's 2.5-char-width bound, as a
+     report; (c) save_state at step 5, load_state, on to step 10: weights
+     bit-identical to the uninterrupted run; (d) ms a step at B = 16
+     (median of 20 after 3 warm-up steps) split into forward, backward and
+     optimizer, the device-busy share of 5 steps under torch.profiler, and
+     (b)'s wall time.
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -150,6 +166,7 @@ from text_alignment_tpu_torch.evaluate import scoring_grid
 from text_alignment_tpu_torch.models import lineest as tle
 from text_alignment_tpu_torch.models import lstm as tl
 from text_alignment_tpu_torch.models.codec import Codec
+from text_alignment_tpu_torch.models.lineest_host import normalize_strip
 from text_alignment_tpu_torch.models.lineest_kernel import (
     center_full_cuda, center_full_reference, tail_cuda, tail_plan,
     tail_reference)
@@ -159,6 +176,8 @@ from text_alignment_tpu_torch.models.lstm_kernel import (
 from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
 from text_alignment_tpu_torch.models.recognizer import (
     SeqRecognizer, _unpack_bits)
+from text_alignment_tpu_torch.models.train import (
+    Trainer, batch_lines, clip_by_global_norm)
 from text_alignment_tpu_torch.ops import cc, oracle
 from text_alignment_tpu_torch.ops import raster_device as rd
 from text_alignment_tpu_torch.ops import skew_device as sd
@@ -1768,6 +1787,244 @@ def phase_profile():
           f"{TAIL_LAUNCHES} the tail, {FULL_LAUNCHES} the full chain)")
 
 
+# phase 18's corpus: tests/test_train_quality.py's pages (the JAX package's
+# training recipe), two training pages and a held-out one
+TRAIN_PAGE_KW = dict(
+    n_lines=6, words_per_line=2, H=1100, W=640, char_h=60, char_w=34,
+    gap=7, space_w=46, line_spacing=160, margin_x=30, glyphs="char",
+    vocabulary=("deus", "in", "ave"))
+TRAIN_SEEDS, HELDOUT_SEED = (200, 201), 990
+TRAIN_LR, TRAIN_MAX_STEPS, TRAIN_STOP = 5e-3, 700, 0.08
+ACC_BAR = 0.85
+STEP_B = 16        # the batch of the step timing
+RESUME_K = 5       # phase 18 (c): save at step k, compare at 2k
+
+
+def strip_text(strip, page, with_positions=False):
+    """Ground truth of a line strip from the page's char boxes (a space
+    where the gap is wider than a glyph gap) and, with
+    ``with_positions``, each char's right edge in strip-local x."""
+    y0, y1 = strip.offset_y, strip.offset_y + strip.img.shape[0]
+    chs = sorted((cb for cb in page.char_boxes
+                  if y0 <= (cb.ul[1] + cb.lr[1]) // 2 < y1),
+                 key=lambda b: b.ul[0])
+    out, rights = [], []
+    for a, b in zip([None] + chs[:-1], chs):
+        if a is not None and b.ul[0] - a.lr[0] > TRAIN_PAGE_KW["gap"] + 2:
+            out.append(" ")
+        out.append(b.char)
+        rights.append(b.lr[0] - strip.offset_x)
+    return ("".join(out), rights) if with_positions else "".join(out)
+
+
+def train_strips(seed):
+    page = make_page(np.random.default_rng(seed), speckles=0, angle=0.0,
+                     **TRAIN_PAGE_KW)
+    image, eroded, _ = preprocess_images(page.image, backend="hybrid")
+    strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
+    return page, strips
+
+
+def char_accuracy(pred: str, truth: str) -> float:
+    """1 - edit distance / len(truth), clamped at 0."""
+    n, m = len(pred), len(truth)
+    prev = list(range(m + 1))
+    for i in range(1, n + 1):
+        cur = [i] + [0] * m
+        for j in range(1, m + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1,
+                         prev[j - 1] + (pred[i - 1] != truth[j - 1]))
+        prev = cur
+    return max(0.0, 1.0 - prev[m] / max(1, m))
+
+
+def train_corpus(codec):
+    """The training batch of the corpus (every line, host-normalized as
+    the CLI's train normalizes), T rounded up to 128 frames."""
+    frames, texts = [], []
+    for seed in TRAIN_SEEDS:
+        page, strips = train_strips(seed)
+        for s in strips:
+            t = strip_text(s, page)
+            norm = normalize_strip(s.img) if t else None
+            if norm is not None:
+                frames.append(norm[0])
+                texts.append(t)
+    check(len(frames) >= 10, f"corpus of {len(frames)} lines only")
+    T = -(-max(f.shape[0] for f in frames) // 128) * 128
+    S = max(len(t) for t in texts) + 8
+    return frames, texts, T, S
+
+
+def step_grads(tr, batch):
+    """The loss and each weight's gradient of one batch (no update)."""
+    args = tr.tensors(*batch)
+    tr.optimizer.zero_grad(set_to_none=True)
+    loss = tr.loss(*args)
+    loss.backward()
+    return float(loss.detach()), [p.grad.detach().cpu()
+                                  for p in tr.model.parameters()]
+
+
+def train_step_split(tr, batch, n: int = 20):
+    """Median ms of the step's forward (the loss), backward and optimizer
+    (clipping and Adam) over ``n`` steps after 3 warm-up steps, each part
+    ended by a synchronize."""
+    args = tr.tensors(*batch)
+    parts = {"forward": [], "backward": [], "optimizer": [], "step": []}
+    for i in range(n + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss = tr.loss(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        clip_by_global_norm([p.grad for p in tr.model.parameters()],
+                            tr.clip_norm)
+        tr.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i >= 3:
+            for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                            ("optimizer", t2, t3), ("step", t0, t3)):
+                parts[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def train_busy(tr, batch, n: int = 5):
+    """torch.profiler over ``n`` steps: device-busy ms (CUDA kernels' self
+    time), wall ms and the kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return busy, wall, sum(e.count for e in kernels)
+
+
+def heldout_decode(params, codec, dev):
+    """The held-out page decoded by SeqRecognizer on ``dev`` with the
+    device normalizer (process()'s setting for backend="hybrid" on the
+    card): per line (decoded text, truth), the lstm_scan and lineest_tail
+    launches, and the mean |x - right edge| over exactly decoded lines."""
+    page, strips = train_strips(HELDOUT_SEED)
+    rec = SeqRecognizer(params, codec, normalize_on_device=True,
+                        decode="bestpath", device=dev)
+    _kernels.reset_launches()
+    rows = rec.recognize_batch([s.img for s in strips])
+    launches = {k: _kernels.launches[k] for k in OCR_KERNELS}
+    out, errs = [], []
+    for s, r in zip(strips, rows):
+        truth, rights = strip_text(s, page, with_positions=True)
+        text = "".join(c for c, _ in r)
+        out.append((text, truth))
+        xs = [x for c, x in r if c != " "]
+        if truth and text.replace(" ", "") == truth.replace(" ", ""):
+            errs.extend(abs(x - e) for x, e in zip(xs, rights))
+    return out, launches, (float(np.mean(errs)) if errs else None)
+
+
+def phase_train(dev):
+    """Phase 18: training on the card (the port's models/train.py)."""
+    codec = Codec()
+    frames, texts, T, S = train_corpus(codec)
+    batch = batch_lines(frames, texts, codec, T, S)
+    print(f"train corpus: {len(frames)} lines, T = {T}, S = {S}, "
+          f"ni = {NI}, ns = {NS}, nout = {len(codec)}")
+
+    # (a) one step from the same weights and batch, card against CPU
+    cpu = Trainer(codec, lr=TRAIN_LR, seed=1, device="cpu")
+    card = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev)
+    loss_c, g_c = step_grads(cpu, batch)
+    loss_g, g_g = step_grads(card, batch)
+    norm = float(torch.sqrt(sum((g * g).sum() for g in g_c)))
+    gerr = max(float((a - b).abs().max()) for a, b in zip(g_c, g_g))
+    step_c, step_g = cpu.step(*batch), card.step(*batch)
+    perr = max(float((a - b.cpu()).abs().max()) for a, b in
+               zip(tl.params_leaves(cpu.params), tl.params_leaves(card.params)))
+    print(f"train (a): loss card {loss_g!r} cpu {loss_c!r} (rel "
+          f"{abs(loss_g - loss_c) / abs(loss_c):.3e}); gradients max |diff| "
+          f"{gerr:.3e} = {gerr / norm:.3e} x global norm {norm:.4f}; after "
+          f"the step loss {step_g!r} / {step_c!r}, weights max |diff| "
+          f"{perr:.3e}")
+    check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c),
+          f"train (a): card loss {loss_g} vs CPU {loss_c}")
+    check(gerr <= 1e-4 * norm, f"train (a): gradients differ by {gerr} "
+          f"(global norm {norm})")
+
+    # (b) the test's recipe on the card
+    tr = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev)
+    t0 = time.perf_counter()
+    loss = float("inf")
+    while tr.iteration < TRAIN_MAX_STEPS and not loss < TRAIN_STOP:
+        loss = tr.step(*batch)
+    wall = time.perf_counter() - t0
+    print(f"train (b): {tr.iteration} steps to loss {loss:.4f} in "
+          f"{wall:.1f} s wall ({wall / tr.iteration * 1e3:.1f} ms a step, "
+          f"B = {len(frames)}, T = {T})")
+    rows, launches, err = heldout_decode(tr.params, codec, dev)
+    rows_cpu, _, _ = heldout_decode(tr.params, codec, "cpu")
+    accs = [char_accuracy(p, t) for p, t in rows if t]
+    acc = float(np.mean(accs))
+    same = sum(a == b for a, b in zip(rows, rows_cpu))
+    err_txt = "no exactly decoded line" if err is None else (
+        f"{err:.1f} px ({err / TRAIN_PAGE_KW['char_w']:.2f} char widths; "
+        f"the test's bound 2.5)")
+    print(f"train (b): held-out accuracy {acc:.4f} over {len(accs)} lines "
+          f"(bar {ACC_BAR}), launches {launches}, CPU decode identical on "
+          f"{same}/{len(rows)} lines, mean position error {err_txt}")
+    check(acc >= ACC_BAR, f"train (b): held-out accuracy {acc} < {ACC_BAR}")
+    check(all(n >= 1 for n in launches.values()),
+          f"train (b): the decode launched {launches}")
+    check(same == len(rows), f"train (b): CPU decode differs: {rows_cpu} "
+          f"vs {rows}")
+
+    # (c) save_state at k, load_state, continue to 2k: bit-identical
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev)
+        for _ in range(2 * RESUME_K):
+            straight.step(*batch)
+        first = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev)
+        for _ in range(RESUME_K):
+            first.step(*batch)
+        path = first.save_state(os.path.join(tmp, "t.state"))
+        resumed = Trainer.load_state(path, device=dev)
+        for _ in range(RESUME_K):
+            resumed.step(*batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tl.params_leaves(straight.params), tl.params_leaves(resumed.params)))
+    print(f"train (c): resumed at {RESUME_K}, weights at {2 * RESUME_K} "
+          f"bit-identical to the uninterrupted run: {same}")
+    check(same, "train (c): resume is not bit-exact on the card")
+
+    # (d) ms a step at B = 16 (the corpus's lines repeated), its split, and
+    # the device-busy share of 5 steps
+    pick = [k % len(frames) for k in range(STEP_B)]
+    batch16 = batch_lines([frames[k] for k in pick], [texts[k] for k in pick],
+                          codec, T, S)
+    timed = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev)
+    split = train_step_split(timed, batch16)
+    busy, wall_ms, n_kernels = train_busy(timed, batch16)
+    print(f"train (d): B = {STEP_B}, T = {T}: ms a step (median of 20) "
+          f"{split['step']:.2f} = forward {split['forward']:.2f} + backward "
+          f"{split['backward']:.2f} + optimizer {split['optimizer']:.2f}; "
+          f"5 steps under torch.profiler: device busy {busy:.2f} of "
+          f"{wall_ms:.2f} ms wall ({busy / wall_ms:.3f}), "
+          f"{n_kernels / 5:.0f} kernels a step")
+
+
 def main(argv) -> int:
     phase_card()
     phase_build()
@@ -1826,6 +2083,7 @@ def main(argv) -> int:
     launches["lineest_full"] = serve_launches["lineest_full"]
     tmp.cleanup()
     phase_profile()
+    phase_train(dev)
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"
     cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"

@@ -1,6 +1,8 @@
 """Hardware lane of the port: each CUDA kernel against its plain PyTorch
-version on the card, at the main-path shapes and at odd ones, and the skew
-search on the card against the host oracle. Marked
+version on the card, at the main-path shapes and at odd ones, the skew
+search on the card against the host oracle, a training step on the card
+against the CPU, and the golden JSON fixtures of tests/test_torch_golden.py
+through process() and the device raster on the card. Marked
 ``cuda``; every test skips when ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it, where
@@ -24,6 +26,7 @@ from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_cuda, bidir_scan_reference)
 
+import test_torch_golden as golden_cases
 from lineest_tail_model import TAIL_CASES, tail_case
 from nw_window_model import TB_KERNEL, windowed_walk
 
@@ -649,3 +652,160 @@ def test_skew_search_on_the_card(cuda):
         assert (sd.rotation_angle_projections(a.astype(np.uint8),
                                               device=cuda)
                 == oracle.rotation_angle_projections(a, -6, 6))
+
+
+def _train_batch(B, T, ni, nlab, seed):
+    rng = np.random.default_rng(seed)
+    xs = rng.random((B, T, ni)).astype(np.float32)
+    xs[:, 10:14] = 0.0  # empty frames for the grounding term
+    xl = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lb = rng.integers(1, nlab, (B, 12)).astype(np.int32)
+    ll = rng.integers(0, 13, B).astype(np.int32)
+    for b in range(B):
+        lb[b, ll[b]:] = 0
+    return xs, xl, lb, ll
+
+
+@pytest.mark.parametrize("gw", [0.0, 0.5])
+def test_train_step_card_matches_cpu(cuda, gw):
+    """One Trainer step at the recognizer's width (ni = 48, ns = 100) from
+    the same seeded weights and batch: the loss to 1e-5 relative, every
+    gradient to 1e-4 x the global norm, the weights after the step to
+    1e-5 wherever the gradient exceeds 1e-6."""
+    from text_alignment_tpu_torch.models.codec import Codec
+    from text_alignment_tpu_torch.models.train import Trainer
+
+    codec = Codec()
+    batch = _train_batch(6, 96, 48, len(codec), 11)
+    trainers = [Trainer(codec, seed=2, ground_weight=gw, device=d)
+                for d in ("cpu", cuda)]
+    grads, losses = [], []
+    for tr in trainers:
+        args = tr.tensors(*batch)
+        loss = tr.loss(*args, gw)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append([p.grad.cpu() for p in tr.model.parameters()])
+        tr.optimizer.zero_grad(set_to_none=True)
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    norm = float(torch.sqrt(sum((g * g).sum() for g in grads[0])))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * norm
+    steps = [tr.step(*batch) for tr in trainers]
+    assert abs(steps[1] - steps[0]) <= 1e-5 * abs(steps[0])
+    for a, b, g in zip(tl.params_leaves(trainers[0].params),
+                       tl.params_leaves(trainers[1].params), grads[0]):
+        sure = g.abs() > 1e-6
+        assert (a[sure] - b.cpu()[sure]).abs().max().item() <= 1e-5
+
+
+def test_train_resume_is_bit_exact_on_the_card(cuda, tmp_path):
+    from text_alignment_tpu_torch.models.codec import Codec
+    from text_alignment_tpu_torch.models.train import Trainer
+
+    codec = Codec()
+    batch = _train_batch(8, 128, 48, len(codec), 12)
+    straight = Trainer(codec, seed=3, device=cuda)
+    for _ in range(6):
+        straight.step(*batch)
+    first = Trainer(codec, seed=3, device=cuda)
+    for _ in range(3):
+        first.step(*batch)
+    resumed = Trainer.load_state(first.save_state(str(tmp_path / "t.state")),
+                                 device=cuda)
+    for _ in range(3):
+        resumed.step(*batch)
+    for a, b in zip(tl.params_leaves(straight.params),
+                    tl.params_leaves(resumed.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(golden_cases.GOLDEN))
+def test_golden_json_on_the_card(cuda, name, monkeypatch):
+    """process(backend="hybrid") on the card, and process_batch with the
+    raster on the card (the CC kernels and the skew search), give the
+    golden JSON."""
+    from text_alignment_tpu_torch.parallel import process_batch
+
+    want = golden_cases.golden(name)
+    assert golden_cases.run_golden(name, "hybrid", cuda) == want
+    make, params = golden_cases.GOLDEN[name]
+    page, transcript, ocr = make()
+    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", "device")
+    res, = process_batch([(page.image, transcript)], None,
+                         preproc_params=params, existing_ocr=[ocr],
+                         device=cuda)
+    assert (None if res is None else res.json_dict) == want
+
+
+def _device_strips(page, params, despeckle_amt, cuda):
+    from text_alignment_tpu_torch.pipeline import device_raster
+
+    (_, angle, strips, peaks), = device_raster.raster_stream_device(
+        [page.image], despeckle_amt=despeckle_amt, params=params,
+        device=cuda)
+    return angle, [(s.offset_x, s.offset_y, s.h, s.w) for s in strips], peaks
+
+
+def _host_strips(page, params, despeckle_amt):
+    image, eroded, angle = golden_cases.preprocess_images(
+        page.image, despeckle_amt=despeckle_amt, backend="hybrid",
+        params=params)
+    strips, peaks, _ = golden_cases.identify_text_lines(
+        image, eroded, backend="hybrid", params=params)
+    return angle, [(s.offset_x, s.offset_y) + s.img.shape for s in strips], \
+        peaks
+
+
+@pytest.mark.parametrize("case", ["skew_pos", "skew_neg", "touching",
+                                  "noise", "empty"])
+def test_raster_boundaries_on_the_card(cuda, case):
+    """The boundary pages of tests/test_torch_golden.py through the device
+    raster on the card: the angle at the +-6 deg search limit, one strip a
+    line across ink bridges, the area-100 CC dropped and the area-102 CC
+    kept, no line on a blank page; angles, peaks and strip boxes equal to
+    the host engine's."""
+    from text_alignment_tpu_torch.pipeline.preprocess import DESPECKLE_AMT
+    from text_alignment_tpu_torch.synth import SynthPage
+
+    despeckle, params = DESPECKLE_AMT, golden_cases.PARAMS
+    if case.startswith("skew"):
+        page, _, _ = golden_cases.fixture_skew(+1 if case == "skew_pos"
+                                               else -1)
+    elif case == "touching":
+        page, _, _ = golden_cases.fixture_touching_lines()
+    elif case == "noise":
+        page = golden_cases.noise_boundary_page()
+        despeckle, params = 20, golden_cases.NOISE_PARAMS
+    else:
+        page = SynthPage(image=np.full((400, 600, 3), 255, np.uint8),
+                         transcript="")
+    got = _device_strips(page, params, despeckle, cuda)
+    want = _host_strips(page, params, despeckle)
+    assert got[0] == want[0] and list(got[2]) == list(want[2])
+    assert got[1] == want[1]
+    if case.startswith("skew"):
+        assert abs(got[0] - (5.9 if case == "skew_neg" else -5.9)) < 0.5
+    else:
+        assert len(got[1]) == {"touching": 3, "noise": 1, "empty": 0}[case]
+    if case == "noise":
+        x, _, _, w = got[1][0]
+        assert x + w - 1 >= 780 and x >= 100
+
+
+def test_sat_boundary_page_on_the_card(cuda):
+    """The saturated-CC boundary page through the device raster's program A
+    on the card: the same rotated page as the host engine's (whose
+    151-row bar is removed and 150-row bar kept, test_torch_golden)."""
+    from text_alignment_tpu_torch.ops import oracle
+    from text_alignment_tpu_torch.ops import raster_device as rd
+    from text_alignment_tpu_torch.pipeline.preprocess import DESPECKLE_AMT
+
+    page = golden_cases.sat_boundary_page()
+    bin_rot, _, _, angle, ok, (H2, W2) = rd.raster_page(
+        oracle.to_onebit(page.image), DESPECKLE_AMT, 150, device=cuda)
+    image, _, want_angle = golden_cases.preprocess_images(page.image,
+                                                          backend="hybrid")
+    assert ok and angle == want_angle
+    np.testing.assert_array_equal(
+        bin_rot.cpu().numpy()[:H2, :W2].astype(bool), image)

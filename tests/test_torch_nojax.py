@@ -7,7 +7,9 @@ normalizer's plain versions (the full-chain route,
 raster (the CC kernels' plain versions), the NW device path's plain
 versions align a pair as the host fill does, serve drains a spool, the
 Rodan task body, verify_reference and the MEI merge run, a stage cache the
-JAX package wrote yields misses, and no loaded module's file lies under
+JAX package wrote yields misses, a training step runs and the CLI's
+``lines``, ``gtedit`` and ``train`` (with a resume) turn a page into a
+checkpoint, and no loaded module's file lies under
 ``text_alignment_tpu/``."""
 
 import os
@@ -147,6 +149,32 @@ _SCRIPT = textwrap.dedent("""
                 verbose=False, device="cpu", stage_cache=cache)
         after = set(os.listdir(cache))
         assert before < after and len(after) == len(before) + 2
+
+    from text_alignment_tpu_torch.models.train import Trainer, batch_lines
+
+    tr = Trainer(Codec(["", "~", " ", "a", "b"]), ni=8, ns=6,
+                 device="cpu")
+    frames = [np.random.default_rng(k).random((12, 8)).astype(np.float32)
+              for k in range(2)]
+    loss = tr.step(*batch_lines(frames, ["ab", "b a"], tr.codec, 12, 4))
+    assert np.isfinite(loss), loss
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "folio.png")
+        Image.fromarray(page.image).save(png)
+        lines = os.path.join(tmp, "lines")
+        assert cli.main(["lines", png, "--out-dir", lines, "--filter-size",
+                         "8", "--device", "cpu"]) == 0
+        crops = sorted(f[:-4] for f in os.listdir(lines))
+        with open(os.path.join(tmp, "c.tsv"), "w") as f:
+            f.writelines(f"{c}\\tdeus in\\n" for c in crops)
+        assert cli.main(["gtedit", "extract", os.path.join(tmp, "c.tsv"),
+                         "--out-dir", lines, "--device", "cpu"]) == 0
+        prefix = os.path.join(tmp, "m")
+        train = ["train", "--lines-dir", lines, "--output-prefix", prefix,
+                 "--hidden", "6", "--iterations", "1", "--device", "cpu"]
+        assert cli.main(train) == 0
+        assert cli.main(train + ["--resume", prefix + ".state"]) == 0
+        assert os.path.exists(prefix + "-00000002.pyrnn.gz")
 
     NSM = "http://www.music-encoding.org/ns/mei"
     raw = ('<mei xmlns="%s" meiversion="4.0.0"><surface>'

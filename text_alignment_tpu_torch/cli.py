@@ -8,16 +8,22 @@ Usage:
     python -m text_alignment_tpu_torch evaluate ...
     python -m text_alignment_tpu_torch mei ...
     python -m text_alignment_tpu_torch verify-reference --assets DIR
+    python -m text_alignment_tpu_torch lines page.png --out-dir lines
+    python -m text_alignment_tpu_torch gtedit html --lines-dir lines
+    python -m text_alignment_tpu_torch train --lines-dir lines
 
 Counterpart of ``text_alignment_tpu/cli.py``: ``align`` (the folio-at-a-
 time loop, with ``--cache-dir`` the content-addressed stage cache, and with
 ``--batch N`` the stage-major batched pipeline, N folios per call; set
 ``TEXT_ALIGNMENT_TPU_RASTER=device`` to run its raster on the card),
 ``serve`` (the spool-directory server), ``evaluate`` (IoU evaluation and
-the scoring grid search), ``mei`` and ``verify-reference``. The card is the
-default device of every subcommand; ``--device cpu`` runs on the CPU.
-``TEXT_ALIGNMENT_TPU_TAIL=full`` takes the full-chain normalizer kernel.
-``lines``, ``gtedit`` and ``train`` are not ported yet (ROADMAP queue A).
+the scoring grid search), ``mei``, ``verify-reference``, and the training
+workflow: ``lines`` (per-line training crops), ``gtedit`` (the correction
+page and its ground truth) and ``train`` (the CTC trainer). The card is
+the default device of every subcommand, which raises without one;
+``--device cpu`` runs on the CPU. ``lines`` and ``gtedit extract`` do
+their work on the host whatever the device. ``TEXT_ALIGNMENT_TPU_TAIL=
+full`` takes the full-chain normalizer kernel.
 """
 
 from __future__ import annotations
@@ -307,6 +313,161 @@ def cmd_mei(args):
     return 0
 
 
+def cmd_train(args):
+    from .models.codec import Codec
+    from .models.lineest_host import normalize_strip
+    from .models.train import Trainer, batch_lines
+
+    # fail on a missing checkpoint dir BEFORE the training run, not at the
+    # first save
+    out_dir = os.path.dirname(args.output_prefix)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    # line images + ground-truth text files, ocropus-rtrain style pairing:
+    # X.png with X.gt.txt
+    pairs = []
+    for fn in sorted(os.listdir(args.lines_dir)):
+        if not fn.endswith(".png"):
+            continue
+        gt = os.path.join(args.lines_dir, fn[:-4] + ".gt.txt")
+        if not os.path.isfile(gt):
+            continue
+        pairs.append((os.path.join(args.lines_dir, fn), gt))
+    if not pairs:
+        print("no training pairs found in", args.lines_dir)
+        return 1
+
+    charset = [""] + ["~", " "]
+    texts = []
+    frames = []
+    for img_path, gt_path in pairs:
+        with open(gt_path) as f:
+            text = f.read().strip()
+        if not text:
+            # defense in depth vs gtedit.extract's empty-row skip: a
+            # hand-made empty gt file must not become an
+            # empty-transcription CTC pair that degrades the model
+            print(f"skipping {img_path}: empty ground truth")
+            continue
+        norm = normalize_strip(_load_image(img_path))
+        if norm is None:
+            continue
+        frames.append(norm[0])
+        texts.append(text)
+        for ch in text:
+            if ch not in charset:
+                charset.append(ch)
+
+    if args.resume:
+        trainer = Trainer.load_state(args.resume, device=args.device)
+        codec = trainer.codec
+        missing = sorted(set(charset) - set(codec.charset))
+        if missing:
+            print(f"training data contains characters absent from the "
+                  f"checkpoint charset: {missing!r}")
+            return 1
+        if args.hidden != trainer.ns or args.lr != trainer.lr:
+            print(f"note: --hidden/--lr ignored on resume; continuing with "
+                  f"the checkpoint's ns={trainer.ns} lr={trainer.lr}")
+        print(f"resumed at iteration {trainer.iteration} from {args.resume}")
+    else:
+        codec = Codec(charset)
+        trainer = Trainer(codec, ni=48, ns=args.hidden, lr=args.lr,
+                          device=args.device)
+
+    rng = np.random.default_rng(0)
+    T = max(len(f) for f in frames)
+    S = max(len(t) for t in texts) + 2
+    idx = np.arange(len(frames))
+    if args.resume and trainer.iteration:
+        # continue the batch-sampling RNG exactly where the original run
+        # left off. Checkpoints store the bit-generator state (exact even
+        # across CHAINED resumes at different --batch-size values); old
+        # checkpoints without it fall back to replaying the draw stream
+        # at the ORIGINAL run's batch size — each draw consumes a
+        # batch-size-dependent amount of the Generator stream, so a
+        # single-resume replay must use the saved size (and a chain of
+        # mixed-size resumes is only exact via the stored state).
+        extra = getattr(trainer, "loaded_extra", {})
+        if "rng_state" in extra:
+            rng.bit_generator.state = extra["rng_state"]
+        else:
+            saved_bs = extra.get("batch_size", args.batch_size)
+            if saved_bs != args.batch_size:
+                print(f"note: checkpoint was trained with --batch-size "
+                      f"{saved_bs}; replaying its draw stream at that size "
+                      f"(new iterations use --batch-size "
+                      f"{args.batch_size})")
+            for _ in range(trainer.iteration):
+                rng.choice(idx, size=min(saved_bs, len(idx)), replace=False)
+    for it in range(args.iterations):
+        batch = rng.choice(idx, size=min(args.batch_size, len(idx)),
+                           replace=False)
+        xs, xl, lb, ll = batch_lines(
+            [frames[i] for i in batch], [texts[i] for i in batch],
+            codec, T=T, S=S,
+        )
+        loss = trainer.step(xs, xl, lb, ll)
+        if it % args.log_every == 0:
+            print(f"iter {it}: ctc loss {loss:.4f}")
+        if args.save_every and it > 0 and it % args.save_every == 0:
+            print("saved", trainer.save(args.output_prefix))
+            print("saved", trainer.save_state(
+                args.output_prefix + ".state",
+                extra={"batch_size": args.batch_size,
+                       "rng_state": rng.bit_generator.state}))
+
+    print("saved", trainer.save(args.output_prefix))
+    print("saved", trainer.save_state(
+                args.output_prefix + ".state",
+                extra={"batch_size": args.batch_size,
+                       "rng_state": rng.bit_generator.state}))
+    return 0
+
+
+def cmd_lines(args):
+    from .align.api import resolve_device
+    from .gtedit import extract_lines
+    from .pipeline.preprocess import PreprocParams
+
+    # the crops are cut on the host; the device is resolved all the same,
+    # as every subcommand's is (no card and no --device cpu: it raises)
+    resolve_device(args.device)
+    pp = (PreprocParams(filter_size=args.filter_size)
+          if args.filter_size else None)
+    total = 0
+    for page in args.pages:
+        stem = os.path.splitext(os.path.basename(page))[0]
+        paths = extract_lines(_load_image(page), args.out_dir, stem,
+                              backend=args.backend, preproc_params=pp)
+        print(f"{page}: {len(paths)} line crop(s) -> {args.out_dir}")
+        total += len(paths)
+    if total == 0:
+        print("no text lines detected")
+        return 1
+    return 0
+
+
+def cmd_gtedit(args):
+    from . import gtedit
+    from .align.api import resolve_device
+
+    device = resolve_device(args.device)
+    if args.gtedit_cmd == "html":
+        rec = None
+        if args.model:
+            from .pipeline.process import _resolve_recognizer
+
+            rec = _resolve_recognizer(args.model, args.backend, device)
+        n = gtedit.make_html(args.lines_dir, args.out, recognizer=rec)
+        print(f"wrote {args.out} ({n} line(s))")
+        return 0 if n else 1
+    n = gtedit.extract(args.saved, args.out_dir)
+    print(f"wrote {n} .gt.txt file(s) -> {args.out_dir}")
+    return 0 if n else 1
+
+
 def cmd_serve(args):
     from .serve import serve
 
@@ -424,6 +585,64 @@ def main(argv=None):
     _device_arg(m, "the OCR and the device NW fill")
     m.add_argument("--verbose", action="store_true")
     m.set_defaults(func=cmd_mei)
+
+    t = sub.add_parser("train", help="train a CTC line recognizer")
+    t.add_argument("--lines-dir", required=True,
+                   help="dir of X.png + X.gt.txt line pairs")
+    t.add_argument("--output-prefix", default="./model")
+    t.add_argument("--iterations", type=int, default=10000)
+    t.add_argument("--batch-size", type=int, default=16)
+    t.add_argument("--hidden", type=int, default=100)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--log-every", type=int, default=100)
+    t.add_argument("--save-every", type=int, default=5000)
+    t.add_argument("--resume", default=None,
+                   help="resume from a .state checkpoint of either package "
+                   "(full optimizer state; exact trajectory continuation "
+                   "when --lines-dir holds the same data; .state files are "
+                   "pickle-free .npz archives, safe to load)")
+    _device_arg(t, "the training step")
+    t.set_defaults(func=cmd_train)
+
+    li = sub.add_parser(
+        "lines",
+        help="segment pages into per-line training crops (the reference's "
+        "'ocropus page segmentation' training step, README.md:52-56)")
+    li.add_argument("pages", nargs="+", help="page image PNGs")
+    li.add_argument("--out-dir", default="./lines")
+    li.add_argument("--backend", default="host", choices=["host", "hybrid"])
+    li.add_argument("--filter-size", type=int, default=0,
+                    help="projection smoothing half-window override "
+                    "(reference filter_size=30; smaller for low-res pages)")
+    _device_arg(li, "the subcommand (the crops are cut on the host)")
+    li.set_defaults(func=cmd_lines)
+
+    g = sub.add_parser(
+        "gtedit",
+        help="browser-based line-transcription correction round trip "
+        "(the ocropus-gtedit equivalent, reference README.md:52-56)")
+    gsub = g.add_subparsers(dest="gtedit_cmd", required=True)
+    gh = gsub.add_parser(
+        "html", help="render line crops + editable transcriptions into one "
+        "self-contained HTML page")
+    gh.add_argument("--lines-dir", required=True,
+                    help="dir of X.png line crops (+ optional X.gt.txt)")
+    gh.add_argument("--out", default="correction.html")
+    gh.add_argument("--model", default=None,
+                    help=".pyrnn.gz recognizer to prefill missing "
+                    "transcriptions by OCR")
+    gh.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    _device_arg(gh, "the --model prefill's OCR")
+    gh.set_defaults(func=cmd_gtedit)
+    ge = gsub.add_parser(
+        "extract", help="write X.gt.txt ground truth from a saved "
+        "correction page or downloaded corrections.tsv")
+    ge.add_argument("saved", help="saved HTML or corrections.tsv")
+    ge.add_argument("--out-dir", required=True,
+                    help="where to write the .gt.txt files (usually the "
+                    "lines dir)")
+    _device_arg(ge, "the subcommand (extraction runs on the host)")
+    ge.set_defaults(func=cmd_gtedit)
 
     s = sub.add_parser(
         "serve",
