@@ -116,7 +116,24 @@ Phases, each printing one line (any failure exits non-zero):
      bit-identical to the uninterrupted run; (d) ms a step at B = 16
      (median of 20 after 3 warm-up steps) split into forward, backward and
      optimizer, the device-busy share of 5 steps under torch.profiler, and
-     (b)'s wall time.
+     (b)'s wall time;
+  19. the mesh on the card (parallel/: mesh, infer_dp, train_dp,
+     multihost): (a) one NCCL rank in this process, make_mesh(1): phase
+     13's 8 folios through process_batch(mesh=, min_align_device_cells=0)
+     give phase 13's JSON byte for byte, the 729-row grids of phase 9
+     (chant and 2400^2) through align_grid(mesh=) equal phase 9's, every
+     collective through NCCL; (b) 2 gloo ranks spawned on cuda:0 with a
+     deadline (NCCL refuses two ranks on one card): the same bytes in
+     every rank, one equal OCR work share a rank, each rank's launches of
+     lstm_scan, lineest_tail, nw_fill_batched and nw_traceback >= 1; in
+     both, sharded_train_demo_step(data_model_mesh(world)) and a
+     Trainer-recipe step on the phase-18 corpus match the one-process step
+     to 1e-5 relative; ms a folio beside phase 13's, and each grid timed
+     3 times sharded and unsharded in turn after a warm-up at its full
+     729-row shape, with the sharded grid's split (fill, walk, the wires'
+     gather and copy, the host replay). Two
+     ranks on one card test the partition and the collectives, not
+     scaling.
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -145,6 +162,7 @@ shared memory (ta_nw_tb_chase).
 from __future__ import annotations
 
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -936,8 +954,8 @@ def phase_nw_batched(dev, page):
     against the host fill, and each grid's work split into fill, walk,
     copy and replay; the batched kernel against its plain version on
     ``fill_cases`` (both grids' launches, 8 rows at 2400², 16 chant rows)
-    with its plan and ms. Returns the stats (the 2400² launch's) and the
-    launches of the grid runs."""
+    with its plan and ms. Returns the stats (the 2400² launch's), the
+    launches of the grid runs and each grid's alignments."""
     pairs = [seeded_pair(1100 + 150 * k, 1950 - 140 * k, 70 + k)
              for k in range(6)]
     buckets = {(nwt._bucket(len(t) + 1), nwt._bucket(len(o) + 1))
@@ -952,13 +970,14 @@ def phase_nw_batched(dev, page):
     chant = chant_pair(page)
     grid = scoring_grid()
     sample = np.random.default_rng(9).choice(len(grid), 27, replace=False)
-    launches = {}
+    launches, grids = {}, {}
     for name, (t, o) in (("chant", chant),
                          ("2400", seeded_pair(2400, 2400, 2400))):
         align_grid(t, o, grid[:2], device=dev)  # warm-up
         _kernels.reset_launches()
         res, g_ms = wall_ms(lambda: align_grid(t, o, grid, device=dev))
         launches[name] = dict(_kernels.launches)
+        grids[name] = res
         ok = all(res[k] == host_align(t, o, grid[k]) for k in sample)
         h_ms = min(wall_ms(lambda: host_align(t, o, grid[0]))[1]
                    for _ in range(3))
@@ -969,7 +988,9 @@ def phase_nw_batched(dev, page):
         check(ok, f"align_grid {name} differs from the host fill")
         check(launches[name]["nw_fill_batched"] >= 1,
               "align_grid did not launch nw_fill_batched")
-        grid_split(name, t, o, grid, dev, g_ms)
+        print(f"nw align_grid {name} split: "
+              f"{split_text(grid_split(t, o, grid, dev))} (the grid's wall "
+              f"{g_ms:.1f} ms)")
     for n in (50, 100, 200, 400):  # the grid's 40,000-cell threshold
         t, o = seeded_pair(n, n, n)
         align_grid(t, o, grid, device=dev)
@@ -1005,13 +1026,14 @@ def phase_nw_batched(dev, page):
                                           + 2), 20 * cells),
                      "chain_floor_ms": floor, "library_ms": None}
         del got
-    return stats, launches
+    return stats, launches, grids
 
 
-def grid_split(name, t, o, grid, dev, wall) -> None:
-    """align_grid's work on the pair in its parts, summed over the grid's
-    launches: the fill and the walk (CUDA events), the wires' copies to the
-    host and the host replay (host clock), beside the grid's wall."""
+def grid_split(t, o, grid, dev, mesh=None) -> dict:
+    """align_grid's work on the pair in its parts, as align_grid does it
+    (this rank's rows under ``mesh``): the fill and the walk summed over
+    the launches (CUDA events), then the wires' gather (under a mesh) and
+    one copy to the host, and the host replay of every row (host clock)."""
     transcript, ocr = list(t) + [" "], list(o) + [" "]
     t_ids, o_ids = nwt._token_ids(transcript, ocr)
     Nt, No = len(t_ids), len(o_ids)
@@ -1019,10 +1041,12 @@ def grid_split(name, t, o, grid, dev, wall) -> None:
     tt = torch.from_numpy(nwt._ext(t_ids, L)[None]).to(dev)
     oo = torch.from_numpy(nwt._ext(o_ids, NoP)[None]).to(dev)
     rows = grid_rows(grid)
-    step = nwt.grid_step(len(rows), L, NoP)
-    parts = np.zeros(4)
-    for c0 in range(0, len(rows), step):
-        pr = torch.from_numpy(rows[c0:c0 + step]).to(dev)
+    mine = nwt._rank_rows(rows, mesh)
+    step = nwt.grid_step(len(mine), L, NoP)
+    parts = {"fill": 0.0, "walk": 0.0}
+    wires = []
+    for c0 in range(0, len(mine), step):
+        pr = torch.from_numpy(mine[c0:c0 + step]).to(dev)
         n = pr.shape[0]
         packed, f_ms = timed_once(
             lambda: nwk.fill_batched(tt, oo, pr, [Nt], [No]))
@@ -1030,16 +1054,24 @@ def grid_split(name, t, o, grid, dev, wall) -> None:
         bo = torch.full((n,), No, dtype=torch.int32, device=dev)
         wire, w_ms = timed_once(lambda: nwk.traceback_batched(packed, bn, bo))
         del packed
-        host, c_ms = wall_ms(lambda: wire.cpu().numpy())
-        ops, k, x, y = nwt.unwire(host)
-        _, r_ms = wall_ms(lambda: [nwt.replay_ops(
-            transcript, ocr, ops[b], int(k[b]), int(x[b]), int(y[b]))
-            for b in range(n)])
-        parts += (f_ms, w_ms, c_ms, r_ms)
-    print(f"nw align_grid {name} split over {len(rows)} rows in launches of "
-          f"{step}: fill {parts[0]:.3f} ms, walk {parts[1]:.3f} ms, wire "
-          f"copy {parts[2]:.3f} ms, host replay {parts[3]:.3f} ms (the grid's "
-          f"wall {wall:.1f} ms)")
+        wires.append(wire)
+        parts["fill"] += f_ms
+        parts["walk"] += w_ms
+    host, parts["gather_copy"] = wall_ms(
+        lambda: nwt._all_wires(wires, len(rows), mesh))
+    ops, k, x, y = nwt.unwire(host)
+    _, parts["replay"] = wall_ms(lambda: [nwt.replay_ops(
+        transcript, ocr, ops[b], int(k[b]), int(x[b]), int(y[b]))
+        for b in range(len(rows))])
+    parts.update(rows=len(mine), step=step)
+    return parts
+
+
+def split_text(parts) -> str:
+    return (f"fill {parts['fill']:.3f} ms, walk {parts['walk']:.3f} ms, "
+            f"wire gather and copy {parts['gather_copy']:.3f} ms, host "
+            f"replay {parts['replay']:.3f} ms ({parts['rows']} rows here in "
+            f"launches of {parts['step']})")
 
 
 def make_big_page():
@@ -1387,7 +1419,8 @@ def per_folio(timer, n):
 def phase_batch(path, dev):
     """Phase 13: process_batch on N_FOLIOS full-size folios on the card,
     in both raster modes, against the sequential process(). Returns the
-    launches of the device-raster run."""
+    launches of the device-raster run, the pages, their JSON and each
+    mode's ms a folio."""
     pages = [make_batch_folio(3000 + k) for k in range(N_FOLIOS)]
     folios = [(pg.image, pg.transcript) for pg in pages]
     seq, seq_timer = [], stage_timer(enabled=True)
@@ -1401,6 +1434,7 @@ def phase_batch(path, dev):
     check(any(j is not None for j in seq), "no folio produced OCR")
     rec = _resolve_recognizer(path, "hybrid", dev)
     launches = None
+    mode_ms = {}
     env = os.environ.get("TEXT_ALIGNMENT_TPU_RASTER")
     try:
         for mode in ("host", "device"):
@@ -1413,6 +1447,7 @@ def phase_batch(path, dev):
                 res, ms = wall_ms(lambda: process_batch(
                     folios, rec, backend="hybrid", timer=timer, device=dev))
             run_launches = dict(_kernels.launches)
+            mode_ms[mode] = ms / N_FOLIOS
             same = batch_json(res) == seq
             print(f"batch ({'a' if mode == 'host' else 'b'}) raster {mode}: "
                   f"{N_FOLIOS} folios {ms / N_FOLIOS:.1f} ms per folio, "
@@ -1448,7 +1483,7 @@ def phase_batch(path, dev):
               "the overflowing page did not fall back to an identical JSON")
     finally:
         restore_env("TEXT_ALIGNMENT_TPU_RASTER", env)
-    return launches, pages
+    return launches, pages, seq, mode_ms
 
 
 def full_inputs(packed_meta, dev):
@@ -2025,8 +2060,219 @@ def phase_train(dev):
           f"{n_kernels / 5:.0f} kernels a step")
 
 
+MESH_WORLD = 2          # phase 19 (b): gloo ranks sharing the card
+MESH_DEADLINE_S = 300   # phase 19 (b), the ranks' start to their end
+MESH_KERNELS = ("lstm_scan", "lineest_tail", "nw_fill_batched",
+                "nw_traceback")
+MESH_GRID_CALLS = 3     # timed calls of each grid, sharded and unsharded
+
+
+def uncounted(fn):
+    """fn(), its kernel launches taken back out of the counts."""
+    before = dict(_kernels.launches)
+    out = fn()
+    _kernels.launches.update(before)
+    return out
+
+
+def ms_list(ms) -> str:
+    return "/".join(f"{m:.1f}" for m in ms)
+
+
+def grid_text(out) -> str:
+    """Phase 19's grid times of one rank: each timed call of the sharded
+    and the unsharded grid, and the sharded grid's split."""
+    return "; ".join(
+        f"{name} grid sharded {ms_list(out[f'grid_{name}_ms'])} ms, "
+        f"unsharded {ms_list(out[f'grid_{name}_one_ms'])} ms, sharded "
+        f"split: {split_text(out[f'grid_{name}_split'])}"
+        for name in ("chant", "2400"))
+
+
+def digest(value) -> str:
+    """sha256 of a JSON-able value's canonical JSON (alignments, JSON)."""
+    return hashlib.sha256(json.dumps(value).encode()).hexdigest()
+
+
+def mesh_pairs(page):
+    """Phase 9's two grid pairs: the folio's chant pair and 2400^2."""
+    return {"chant": chant_pair(page),
+            "2400": seeded_pair(2400, 2400, 2400)}
+
+
+def mesh_work(mesh, path, dev, folios, pairs, recipe_batch):
+    """Phase 19's work in one rank of ``mesh``: process_batch on the
+    folios (one folio's warm-up, then all, timed; every pair through the
+    sharded NW buckets), the 729-row grid on both pairs, the demo train
+    step on data_model_mesh(world) and one Trainer-recipe step on the
+    phase-18 corpus. Returns the JSON, the grids' digests, the ms, the work
+    shares, this rank's launches and the losses."""
+    import torch.distributed as dist
+
+    from text_alignment_tpu_torch.parallel import (
+        data_model_mesh, infer_dp, make_sharded_train_step,
+        sharded_train_demo_step)
+    from text_alignment_tpu_torch.parallel.multihost import (
+        assert_same_across_processes)
+    from text_alignment_tpu_torch.parallel.train_dp import trainer_recipe
+
+    rec = _resolve_recognizer(path, "hybrid", dev)
+    grid = scoring_grid()
+    kw = dict(backend="hybrid", mesh=mesh, min_align_device_cells=0)
+    process_batch(folios[:1], rec, **kw)  # warm-up
+    for t, o in pairs.values():  # warm-up at the grids' full launch shapes
+        align_grid(t, o, grid, mesh=mesh)
+        align_grid(t, o, grid, device=dev)
+    _kernels.reset_launches()
+    res, ms = wall_ms(lambda: process_batch(folios, rec, **kw))
+    out = {"json": batch_json(res), "batch_ms": ms / len(folios),
+           "shares": dict(infer_dp.LAST_WORK_SHARES)}
+    for name, (t, o) in pairs.items():
+        # sharded and unsharded calls alternate; the unsharded ones' and
+        # the split's launches are taken back out of the counts
+        sharded, one = [], []
+        for _ in range(MESH_GRID_CALLS):
+            got, ms = wall_ms(lambda: align_grid(t, o, grid, mesh=mesh))
+            sharded.append(ms)
+            one.append(uncounted(lambda: wall_ms(
+                lambda: align_grid(t, o, grid, device=dev)))[1])
+        out[f"grid_{name}"] = digest(got)
+        out[f"grid_{name}_ms"], out[f"grid_{name}_one_ms"] = sharded, one
+        out[f"grid_{name}_split"] = uncounted(
+            lambda: grid_split(t, o, grid, dev, mesh))
+    out["launches"] = {k: _kernels.launches[k] for k in MESH_KERNELS}
+    assert_same_across_processes("phase 19 results", [
+        out["json"], out["grid_chant"], out["grid_2400"]])
+    mesh2 = data_model_mesh(dist.get_world_size())
+    out["demo_loss"] = sharded_train_demo_step(mesh2)
+    tr = Trainer(Codec(), lr=TRAIN_LR, seed=1, device=dev)
+    opt = trainer_recipe(tr)
+    step, shard_params, shard_batch = make_sharded_train_step(mesh2, opt)
+    sp = shard_params(tr.params)
+    _, _, out["recipe_loss"] = step(sp, opt.init(sp),
+                                    *shard_batch(*recipe_batch))
+    return out
+
+
+def _mesh_rank(workdir, path):
+    """Phase 19 (b): one of MESH_WORLD gloo ranks sharing the card; writes
+    ``rank<r>.json`` into ``workdir``."""
+    import torch.distributed as dist
+
+    from text_alignment_tpu_torch.parallel import make_mesh
+    from text_alignment_tpu_torch.parallel.multihost import (
+        gather_shares, rank_device)
+
+    dev = rank_device()
+    pages = [make_batch_folio(3000 + k) for k in range(N_FOLIOS)]
+    with np.load(os.path.join(workdir, "recipe.npz")) as z:
+        batch = tuple(z[k] for k in ("xs", "xlens", "labels", "llens"))
+    out = mesh_work(make_mesh(dist.get_world_size()), path, dev,
+                    [(pg.image, pg.transcript) for pg in pages],
+                    mesh_pairs(make_folio()), batch)
+    out.update(backend=dist.get_backend(), device=str(dev))
+    out["all_launches"] = gather_shares({f"rank{dist.get_rank()}":
+                                         out["launches"]})
+    with open(os.path.join(workdir, f"rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(dev, card, path, page, pages, seq, batch_ms, grids,
+               workdir):
+    """Phase 19: the mesh on the card. (a) One NCCL rank in this process:
+    phase 13's folios through process_batch(mesh=make_mesh(1)), JSON
+    byte-identical to phase 13's, and both 729-row grids equal to phase
+    9's. (b) MESH_WORLD gloo ranks sharing cuda:0 (NCCL refuses two ranks
+    on one card), spawned with a deadline: the same bytes in every rank,
+    one equal work share a rank, each rank's launches of the four kernels
+    on the path >= 1. In both, the demo step on data_model_mesh(world) and
+    a Trainer-recipe step on the phase-18 corpus match the one-process
+    step to 1e-5 relative."""
+    import torch.distributed as dist
+
+    from text_alignment_tpu_torch.parallel import make_mesh
+    from text_alignment_tpu_torch.parallel import multihost
+
+    folios = [(pg.image, pg.transcript) for pg in pages]
+    pairs = mesh_pairs(page)
+    want = {name: digest(grids[name]) for name in pairs}
+    codec = Codec()
+    frames, texts, T, S = train_corpus(codec)
+    batch = batch_lines(frames, texts, codec, T, S)
+    np.savez(os.path.join(workdir, "recipe.npz"),
+             **dict(zip(("xs", "xlens", "labels", "llens"), batch)))
+    one = Trainer(codec, lr=TRAIN_LR, seed=1, device=dev).step(*batch)
+
+    def check_run(tag, out, demo_ref):
+        check(out["json"] == seq, f"mesh {tag}: the JSON differs from phase "
+              f"13's")
+        for name in pairs:
+            check(out[f"grid_{name}"] == want[name], f"mesh {tag}: the "
+                  f"{name} grid differs from phase 9's")
+        check(abs(out["recipe_loss"] - one) <= 1e-5 * abs(one),
+              f"mesh {tag}: recipe loss {out['recipe_loss']} vs {one}")
+        check(abs(out["demo_loss"] - demo_ref) <= 1e-5 * abs(demo_ref),
+              f"mesh {tag}: demo loss {out['demo_loss']} vs {demo_ref}")
+
+    t0 = time.perf_counter()
+    multihost.init_rank(0, 1, os.path.join(workdir, "store"), "cuda")
+    try:
+        mesh = make_mesh(1)
+        backends = {dist.get_backend(), dist.get_backend(
+            mesh.get_group("data"))}
+        check(backends == {"nccl"}, f"mesh (a): backends {backends}")
+        a = mesh_work(mesh, path, dev, folios, pairs, batch)
+    finally:
+        multihost.leave_rank()
+    a_wall = time.perf_counter() - t0
+    check_run("(a)", a, a["demo_loss"])
+    print(f"mesh (a) one NCCL rank on cuda:0 (card {card}): process_batch "
+          f"of {N_FOLIOS} folios {a['batch_ms']:.1f} ms a folio (phase 13: "
+          f"(a) {batch_ms['host']:.1f}, (b) {batch_ms['device']:.1f}), JSON "
+          f"identical to phase 13's; grids equal to phase 9's, "
+          f"{grid_text(a)}; shares {a['shares']}; launches "
+          f"{a['launches']}; demo loss "
+          f"{a['demo_loss']!r}, recipe loss {a['recipe_loss']!r} (one "
+          f"process {one!r}); phase (a) wall {a_wall:.1f} s")
+    check(all(a["launches"][k] >= 1 for k in MESH_KERNELS),
+          f"mesh (a): launches {a['launches']}")
+
+    t0 = time.perf_counter()
+    multihost.launch(_mesh_rank, MESH_WORLD, args=(workdir, path),
+                     device="cuda", deadline_s=MESH_DEADLINE_S)
+    b_wall = time.perf_counter() - t0
+    outs = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    for r, b in enumerate(outs):
+        check(b["backend"] == "gloo" and b["device"] == "cuda:0",
+              f"mesh (b) rank {r}: {b['backend']} on {b['device']}")
+        check_run(f"(b) rank {r}", b, a["demo_loss"])
+        shares = b["shares"]
+        check(len(shares) == MESH_WORLD and len(set(shares.values())) == 1,
+              f"mesh (b): work shares {shares}")
+        for rank, counts in b["all_launches"].items():
+            check(all(counts[k] >= 1 for k in MESH_KERNELS),
+                  f"mesh (b) {rank}: launches {counts}")
+    b = outs[0]
+    print(f"mesh (b) {MESH_WORLD} gloo ranks sharing cuda:0 (card {card}; "
+          f"two ranks on one card test the partition and the collectives, "
+          f"not scaling): process_batch {b['batch_ms']:.1f} / "
+          f"{outs[1]['batch_ms']:.1f} ms a folio (phase 13: (a) "
+          f"{batch_ms['host']:.1f}, (b) {batch_ms['device']:.1f}; mesh (a) "
+          f"{a['batch_ms']:.1f}), JSON identical to phase 13's in every "
+          f"rank; grids equal to phase 9's, rank 0: {grid_text(b)}; rank "
+          f"1: {grid_text(outs[1])}; work shares "
+          f"{b['shares']}; launches by rank {b['all_launches']}; demo loss "
+          f"{b['demo_loss']!r} (one rank {a['demo_loss']!r}), recipe loss "
+          f"{b['recipe_loss']!r} (one process {one!r}); spawn to join "
+          f"{b_wall:.1f} s")
+
+
 def main(argv) -> int:
-    phase_card()
+    card = phase_card()
     phase_build()
     tl.pin_float32()
     dev = torch.device("cuda")
@@ -2060,7 +2306,8 @@ def main(argv) -> int:
     stats["nw_fill"], packed, nts, nos = phase_nw_fill(dev)
     stats["nw_traceback"] = phase_nw_traceback(dev, packed, nts, nos)
     del packed
-    stats["nw_fill_batched"], grid_launches = phase_nw_batched(dev, page)
+    stats["nw_fill_batched"], grid_launches, grids = phase_nw_batched(dev,
+                                                                      page)
     nw_launches = phase_nw_process()
     # the long pairs' packed pointers (up to 735 MB a launch) stay in the
     # caching allocator; hand them back before the batch phases
@@ -2072,7 +2319,8 @@ def main(argv) -> int:
 
     stats.update(phase_cc(dev, make_batch_folio(3000), page))
     phase_skew(dev, page)
-    batch_launches, batch_pages = phase_batch(path, dev)
+    batch_launches, batch_pages, batch_seq, batch_ms = phase_batch(path,
+                                                                   dev)
     # the CC kernels' launches: process_batch with the raster on the card
     launches.update({k: batch_launches[k]
                      for k in ("cc_filter", "cc_clean", "cc_table")})
@@ -2081,9 +2329,11 @@ def main(argv) -> int:
     phase_full_gate(params_np, codec, strips, dev)
     serve_launches = phase_serve(batch_pages, path, dev, tmp.name)
     launches["lineest_full"] = serve_launches["lineest_full"]
-    tmp.cleanup()
     phase_profile()
     phase_train(dev)
+    phase_mesh(dev, card, path, page, batch_pages, batch_seq, batch_ms,
+               grids, tmp.name)
+    tmp.cleanup()
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"
     cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"

@@ -1,8 +1,11 @@
 """Hardware lane of the port: each CUDA kernel against its plain PyTorch
 version on the card, at the main-path shapes and at odd ones, the skew
 search on the card against the host oracle, a training step on the card
-against the CPU, and the golden JSON fixtures of tests/test_torch_golden.py
-through process() and the device raster on the card. Marked
+against the CPU, the golden JSON fixtures of tests/test_torch_golden.py
+through process() and the device raster on the card, and the mesh's
+sharded OCR and grid in one NCCL rank and in two gloo ranks sharing the
+card, against the one-process run, and the mesh of a gloo group started
+outside the launcher, on the card. Marked
 ``cuda``; every test skips when ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it, where
@@ -809,3 +812,101 @@ def test_sat_boundary_page_on_the_card(cuda):
     assert ok and angle == want_angle
     np.testing.assert_array_equal(
         bin_rot.cpu().numpy()[:H2, :W2].astype(bool), image)
+
+
+def _card_mesh_rank(out_dir, world):
+    """One rank of the card's mesh: the sharded OCR wire and the sharded
+    grid of tests/test_torch_parallel.py's inputs, its backend, device and
+    kernel launches; written to ``rank<r>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    import test_torch_parallel as tp
+    from text_alignment_tpu_torch.align.api import align_grid
+    from text_alignment_tpu_torch.models.lineest_host import DEFAULT_PAD
+    from text_alignment_tpu_torch.parallel import infer_dp, make_mesh
+
+    with open(f"{out_dir}/inputs.pkl", "rb") as f:
+        packed_meta, t_max = pickle.load(f)
+    mesh = make_mesh(world)
+    _kernels.reset_launches()
+    wire = infer_dp.recognize_sharded_meta(
+        tl.params_from_np(tp.peaky_params()), packed_meta, mesh, t_max=t_max,
+        target_height=48, pad=DEFAULT_PAD, max_regions=tp.WIRE_REGIONS)
+    grid = align_grid(list(tp.GRID_T), list(tp.GRID_O), tp.GRID_ROWS,
+                      mesh=mesh)
+    out = {"wire": wire, "grid": grid, "backend": dist.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "shares": dict(infer_dp.LAST_WORK_SHARES),
+           "launches": dict(_kernels.launches)}
+    with open(f"{out_dir}/rank{dist.get_rank()}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")],
+                         ids=["one-nccl-rank", "two-gloo-ranks"])
+def test_mesh_on_the_card_matches_one_process(cuda, tmp_path, world,
+                                              backend):
+    """The sharded OCR wire and the sharded grid on the card, one NCCL
+    rank or two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+    card), byte-identical to the one-process run, through the kernels."""
+    import pickle
+
+    import test_torch_parallel as tp
+    from text_alignment_tpu_torch.align.api import align_grid
+    from text_alignment_tpu_torch.models.lineest_host import DEFAULT_PAD
+    from text_alignment_tpu_torch.models.recognizer import (
+        _recognize_device_impl)
+    from text_alignment_tpu_torch.parallel.multihost import launch
+
+    _kernels.lib()  # built once here, loaded by the ranks
+    packed_meta, t_max = tp.packed_batch(tp.strip_batch())
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump((packed_meta, t_max), f)
+    launch(_card_mesh_rank, world, args=(str(tmp_path), world),
+           device="cuda", store_dir=str(tmp_path), deadline_s=300)
+    wire = _recognize_device_impl(
+        tl.params_from_np(tp.peaky_params()).to(cuda),
+        torch.from_numpy(packed_meta).to(cuda), t_max=t_max,
+        target_height=48, pad=DEFAULT_PAD, max_regions=tp.WIRE_REGIONS)
+    grid = align_grid(list(tp.GRID_T), list(tp.GRID_O), tp.GRID_ROWS,
+                      device=cuda)
+    for r in range(world):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            out = pickle.load(f)
+        assert out["backend"] == backend and out["device"] == "cuda:0"
+        np.testing.assert_array_equal(out["wire"], wire)
+        assert out["grid"] == grid
+        assert len(out["shares"]) == world
+        for name in ("lstm_scan", "lineest_tail", "nw_fill_batched",
+                     "nw_traceback"):
+            assert out["launches"][name] >= 1, (name, out["launches"])
+
+
+def test_mesh_in_a_group_started_elsewhere_is_on_the_card(cuda, tmp_path):
+    """A gloo group from a plain init_process_group (not init_rank): the
+    mesh is a card mesh and the sharded grid runs through the kernels,
+    equal to the one-process grid."""
+    import os
+
+    import torch.distributed as dist
+
+    import test_torch_parallel as tp
+    from text_alignment_tpu_torch.align.api import align_grid
+    from text_alignment_tpu_torch.parallel import make_mesh
+
+    want = align_grid(list(tp.GRID_T), list(tp.GRID_O), tp.GRID_ROWS,
+                      device=cuda)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        assert mesh.device_type == "cuda"
+        _kernels.reset_launches()
+        assert align_grid(list(tp.GRID_T), list(tp.GRID_O), tp.GRID_ROWS,
+                          mesh=mesh) == want
+        assert _kernels.launches["nw_fill_batched"] >= 1
+    finally:
+        dist.destroy_process_group()

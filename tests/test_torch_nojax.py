@@ -9,7 +9,8 @@ versions align a pair as the host fill does, serve drains a spool, the
 Rodan task body, verify_reference and the MEI merge run, a stage cache the
 JAX package wrote yields misses, a training step runs and the CLI's
 ``lines``, ``gtedit`` and ``train`` (with a resume) turn a page into a
-checkpoint, and no loaded module's file lies under
+checkpoint, a one-rank gloo mesh runs the sharded train step and the
+sharded grid, and no loaded module's file lies under
 ``text_alignment_tpu/``."""
 
 import os
@@ -42,7 +43,7 @@ _SCRIPT = textwrap.dedent("""
     import text_alignment_tpu_torch
     from text_alignment_tpu_torch import cli, evaluate  # noqa: F401
     from text_alignment_tpu_torch.align import nw_kernel  # noqa: F401
-    from text_alignment_tpu_torch.align import perform_alignment
+    from text_alignment_tpu_torch.align import align_grid, perform_alignment
     from text_alignment_tpu_torch.models.codec import Codec
     from text_alignment_tpu_torch.models.lstm import (
         init_params_np, params_from_np)
@@ -158,6 +159,24 @@ _SCRIPT = textwrap.dedent("""
               for k in range(2)]
     loss = tr.step(*batch_lines(frames, ["ab", "b a"], tr.codec, 12, 4))
     assert np.isfinite(loss), loss
+
+    import torch.distributed as dist
+    from text_alignment_tpu_torch.parallel import (
+        data_model_mesh, make_mesh, sharded_train_demo_step)
+    from text_alignment_tpu_torch.parallel import infer_dp  # noqa: F401
+    from text_alignment_tpu_torch.parallel.multihost import (
+        init_rank, leave_rank)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, 1, os.path.join(tmp, "store"), "cpu")
+        try:
+            assert np.isfinite(sharded_train_demo_step(data_model_mesh(1)))
+            grid = [[8, -4, -7, -7, -3, 0], [5, -4, -2, -2, 0, 0]]
+            assert (align_grid(t, o, grid, mesh=make_mesh(1))
+                    == align_grid(t, o, grid, device="cpu"))
+        finally:
+            leave_rank()
+    assert not dist.is_initialized()
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "folio.png")
         Image.fromarray(page.image).save(png)

@@ -64,14 +64,14 @@ def _device_align_ops(sc):
     return nw_torch.align_ops_plain
 
 
-def align_grid(transcript, ocr, params_list, device=None):
+def align_grid(transcript, ocr, params_list, device=None, mesh=None):
     """One (transcript, ocr) pair aligned under many integer scoring rows
     [match, mismatch, gox, goy, gex, gey] on ``device`` (None: the
     card): the 729-combination grid search as batched wavefronts
-    (:func:`.nw_torch.align_grid`). Returns (tra_align, ocr_align) per
-    row."""
-    return nw_torch.align_grid(transcript, ocr, params_list,
-                               resolve_device(device))
+    (:func:`.nw_torch.align_grid`). ``mesh`` shards the rows over the
+    ranks of its ``data`` axis, each on its own device; every rank
+    returns the whole list. Returns (tra_align, ocr_align) per row."""
+    return nw_torch.align_grid(transcript, ocr, params_list, device, mesh)
 
 
 def perform_alignment(transcript, ocr, scoring_system=None, verbose=False,

@@ -164,11 +164,51 @@ def unwire(wire):
     return wire[..., 3:], wire[..., 0], wire[..., 1], wire[..., 2]
 
 
-def _walk(packed, nts, nos, device):
-    """Traceback of B filled pairs and one copy of the wire to the host."""
+def _walk_wire(packed, nts, nos, device):
+    """Traceback of B filled pairs: the (B, 3 + P) wire, on ``device``."""
     nts = torch.as_tensor(np.asarray(nts, np.int32)).to(device)
     nos = torch.as_tensor(np.asarray(nos, np.int32)).to(device)
-    return unwire(nw_kernel.traceback_batched(packed, nts, nos).cpu().numpy())
+    return nw_kernel.traceback_batched(packed, nts, nos)
+
+
+def _walk(packed, nts, nos, device):
+    """Traceback of B filled pairs and one copy of the wire to the host."""
+    return unwire(_walk_wire(packed, nts, nos, device).cpu().numpy())
+
+
+def _resolve(device, mesh):
+    """The device of a call: this rank's under a mesh (``device``, if
+    given, must be it), else :func:`.api.resolve_device`."""
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        return mesh_device(mesh, device)
+    from .api import resolve_device
+
+    return resolve_device(device)
+
+
+def _rank_rows(rows, mesh):
+    """This rank's share of ``rows`` (all of them without a mesh), padded
+    by copies of row 0 to a multiple of the ``data`` axis: the padded rows
+    are valid work whose results are thrown away (``nw_jax``'s rule)."""
+    if mesh is None:
+        return rows
+    from ..parallel.multihost import shard_rows
+
+    return shard_rows(rows, mesh, pad="first")[0]
+
+
+def _all_wires(wires, n_rows: int, mesh):
+    """The host wires of every row on every rank: this rank's device wires
+    joined and, under a mesh, all-gathered over its ``data`` axis (on the
+    card under NCCL), padded rows dropped; one copy to the host."""
+    wire = torch.cat(wires)
+    if mesh is None:
+        return wire.cpu().numpy()
+    from ..parallel.multihost import fetch
+
+    return fetch(wire, mesh)[:n_rows]
 
 
 def align_ops(transcript, ocr, sc, device):
@@ -210,22 +250,26 @@ def grid_step(n: int, L: int, NoP: int) -> int:
 
 
 def align_pairs(pairs, sc, min_device_cells: int | None = None,
-                device=None):
+                device=None, mesh=None):
     """Many (transcript, ocr) pairs under one integer match/mismatch
-    scoring (``nw_jax.align_pairs_jax`` without a mesh). Pairs of fewer
-    than ``min_device_cells`` cells (default: the host/device crossover,
+    scoring (``nw_jax.align_pairs_jax``). Pairs of fewer than
+    ``min_device_cells`` cells (default: the host/device crossover,
     ``align.api.auto_device_min_cells``) run the host fill; the rest are
     grouped by padded (L, NoP) bucket and each group runs as one batched
     fill (its scoring row shared) and one traceback launch. Returns
     (tra_align, ocr_align) per pair in input order, or None per pair when
     the scoring is not integer match/mismatch (the caller aligns those one
     by one). Sentinels are appended here. ``device``: None means the card
-    (:func:`.api.resolve_device`)."""
+    (:func:`.api.resolve_device`), or under a ``mesh`` this rank's device.
+    ``mesh``: each bucket's pairs are sharded over the mesh's ``data``
+    axis, every rank fills and walks its share and the wires are gathered,
+    so every rank returns the whole list; the host/device split depends on
+    the pairs alone, the same on every rank."""
     if not kernel_form(sc):
         return [None for _ in pairs]
-    from .api import auto_device_min_cells, resolve_device
+    from .api import auto_device_min_cells
 
-    device = resolve_device(device)
+    device = _resolve(device, mesh)
     min_cells = (auto_device_min_cells() if min_device_cells is None
                  else min_device_cells)
     results = [None] * len(pairs)
@@ -243,34 +287,38 @@ def align_pairs(pairs, sc, min_device_cells: int | None = None,
     params = torch.from_numpy(kernel_params(sc)[None]).to(device)
     for (L, NoP), members in sorted(groups.items()):
         step = _per_launch(L, NoP)
-        for c0 in range(0, len(members), step):
-            chunk = members[c0:c0 + step]
-            t, o, nts, nos = lane_batch([prepared[i] for i in chunk])
+        mine = _rank_rows(np.asarray(members), mesh)
+        wires = []
+        for c0 in range(0, len(mine), step):
+            t, o, nts, nos = lane_batch([prepared[i]
+                                         for i in mine[c0:c0 + step]])
             packed = nw_kernel.fill_batched(torch.from_numpy(t).to(device),
                                             torch.from_numpy(o).to(device),
                                             params, nts, nos)
-            ops, k, xpt, ypt = _walk(packed, nts, nos, device)
+            wires.append(_walk_wire(packed, nts, nos, device))
             del packed
-            for bi, i in enumerate(chunk):
-                results[i] = replay_ops(*prepared[i], ops[bi], int(k[bi]),
-                                        int(xpt[bi]), int(ypt[bi]))
+        ops, k, xpt, ypt = unwire(_all_wires(wires, len(members), mesh))
+        for bi, i in enumerate(members):
+            results[i] = replay_ops(*prepared[i], ops[bi], int(k[bi]),
+                                    int(xpt[bi]), int(ypt[bi]))
     return results
 
 
-def align_grid(transcript, ocr, params_list, device=None):
+def align_grid(transcript, ocr, params_list, device=None, mesh=None):
     """One (transcript, ocr) pair under many integer scoring rows
     [match, mismatch, gox, goy, gex, gey], the reference's boundary gap
-    extend on both axes (``nw_jax.align_grid_jax`` without a mesh): the
-    729-combination grid search. Every combination of a launch reads the
-    one transcript row and the one OCR row (``shared_feed``) and its own
-    scoring row (``per_pair``); the combination axis is cut into equal
-    launches whose packed pointers stay within ``PTR_BUDGET``
-    (:func:`grid_step`). Returns (tra_align, ocr_align) per row.
-    Sentinels are appended here. ``device``: None means the card
-    (:func:`.api.resolve_device`)."""
-    from .api import resolve_device
-
-    device = resolve_device(device)
+    extend on both axes (``nw_jax.align_grid_jax``): the 729-combination
+    grid search. Every combination of a launch reads the one transcript
+    row and the one OCR row (``shared_feed``) and its own scoring row
+    (``per_pair``); the combination axis is cut into equal launches whose
+    packed pointers stay within ``PTR_BUDGET`` (:func:`grid_step`).
+    Returns (tra_align, ocr_align) per row. Sentinels are appended here.
+    ``device``: None means the card (:func:`.api.resolve_device`), or
+    under a ``mesh`` this rank's device. ``mesh``: the rows are sharded
+    over the mesh's ``data`` axis (padded with copies of row 0, their
+    results thrown away), every rank fills and walks its share, and the
+    wires are gathered, so every rank returns the whole list."""
+    device = _resolve(device, mesh)
     transcript = list(transcript) + [" "]
     ocr = list(ocr) + [" "]
     t_ids, o_ids = _token_ids(transcript, ocr)
@@ -283,17 +331,17 @@ def align_grid(transcript, ocr, params_list, device=None):
     rows = np.concatenate(
         [p6, np.full((len(p6), 2), BOUNDARY_GAP_EXTEND, np.int64)],
         axis=1).astype(np.int32)
-    step = grid_step(len(rows), L, NoP)
+    mine = _rank_rows(rows, mesh)
+    step = grid_step(len(mine), L, NoP)
     t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
     o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
-    results = []
-    for c0 in range(0, len(rows), step):
-        pr = torch.from_numpy(rows[c0:c0 + step]).to(device)
+    wires = []
+    for c0 in range(0, len(mine), step):
+        pr = torch.from_numpy(mine[c0:c0 + step]).to(device)
         n = pr.shape[0]
         packed = nw_kernel.fill_batched(t, o, pr, [Nt], [No])
-        ops, k, xpt, ypt = _walk(packed, [Nt] * n, [No] * n, device)
+        wires.append(_walk_wire(packed, [Nt] * n, [No] * n, device))
         del packed
-        for b in range(n):
-            results.append(replay_ops(transcript, ocr, ops[b], int(k[b]),
-                                      int(xpt[b]), int(ypt[b])))
-    return results
+    ops, k, xpt, ypt = unwire(_all_wires(wires, len(rows), mesh))
+    return [replay_ops(transcript, ocr, ops[b], int(k[b]), int(xpt[b]),
+                       int(ypt[b])) for b in range(len(rows))]

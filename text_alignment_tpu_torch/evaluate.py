@@ -142,7 +142,7 @@ GRID_DEVICE_MIN_CELLS = 40_000
 
 def grid_search(fixtures, shuffle=True, seed=None, backend="host",
                 verbose=True, params_list=None, grid_align="auto",
-                device=None):
+                device=None, mesh=None):
     """Grid-search scoring parameters over evaluation fixtures.
 
     ``fixtures`` is a list of dicts with keys raw_image (np array),
@@ -156,19 +156,40 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
     to each ``process()`` call; "auto" (default) takes the device batch
     when ``device`` is a card and the fixture's pair has at least
     ``GRID_DEVICE_MIN_CELLS`` cells. ``device`` (None: the card; it raises
-    when there is none) also runs ``process()``'s own stages.
+    when there is none) also runs ``process()``'s own stages. ``mesh``
+    shards each fixture's grid over the ranks of the mesh's ``data`` axis
+    (:func:`.align.api.align_grid`), each rank on its own device (then
+    ``device``, None: this rank's); with a mesh, "auto" takes the device
+    batch for every fixture, and "host", which would leave the mesh
+    unused, raises. Under a mesh every rank takes rank 0's shuffled order
+    (each rank draws its own), so the rows the ranks share are the same
+    rows in the same order.
 
     Returns (logs, ranked): {params tuple: mean ink-IoU} and its items
     sorted ascending, like the reference's __main__.
     """
     from .pipeline import process, to_JSON_dict
 
+    if mesh is not None:
+        from .parallel.mesh import mesh_device
+
+        device = mesh_device(mesh, device)
+        if grid_align == "host":
+            raise ValueError("grid_align='host' with a mesh: the mesh shards "
+                             "the device grid, and the host route has none")
+        grid_align = "device"
     device = resolve_device(device)
     if params_list is None:
         params_list = scoring_grid()
     params_list = np.asarray(params_list)
     if shuffle:
         np.random.default_rng(seed).shuffle(params_list)
+    if mesh is not None:  # rank 0's order on every rank
+        import torch.distributed as dist
+
+        box = [params_list]
+        dist.broadcast_object_list(box, src=0)
+        params_list = box[0]
 
     # the raster stages do not depend on the scoring: run them once per
     # fixture (the evaluation image without deskew, as the reference does)
@@ -194,7 +215,7 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
                 grid_align == "auto" and device.type == "cuda"
                 and cells >= GRID_DEVICE_MIN_CELLS):
             grid_aligns = align_grid(list(fx["transcript"]), list(ocr),
-                                     params_list, device)
+                                     params_list, device, mesh)
         elif grid_align not in ("auto", "host"):
             raise ValueError(f"unknown grid_align {grid_align!r}")
         prepared.append((fx, pre, eval_img, (strips, peaks), grid_aligns))

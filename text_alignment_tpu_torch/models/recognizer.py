@@ -15,8 +15,12 @@ The batched pipeline (``parallel/batch``) drives the asynchronous half:
 ``dispatch_async`` queues a batch (host strips, or a ``DevicePageStrips``
 feed that cuts the strips from a device-resident page with the device
 raster's program C) and returns at once; ``collect_async`` brings any
-number of dispatches back in one copy. Not ported: the mesh. There is no
-kernel fallback: a kernel that fails to build or launch raises.
+number of dispatches back in one copy. With a ``mesh`` (a
+``torch.distributed`` device mesh, :mod:`..parallel.mesh`) the batch is
+sharded over the ranks of its ``data`` axis (:mod:`..parallel.infer_dp`)
+and every rank decodes the whole batch; the asynchronous half then runs
+synchronously and the device-page feed raises. There is no kernel
+fallback: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -127,21 +131,28 @@ class SeqRecognizer:
 
     def __init__(self, params: BiLSTMParams, codec: Codec,
                  target_height: int = 48, pad: int = DEFAULT_PAD,
-                 normalize_on_device: bool = False, decode: str = "region",
-                 device=None):
+                 normalize_on_device: bool = False, mesh=None,
+                 decode: str = "region", device=None):
         """``device``: where the BiLSTM, the decode and (with
         ``normalize_on_device=True``) the line normalizer run; None means
         the card (:func:`..align.api.resolve_device`: it raises when there
-        is none). On a CUDA device they run through the port's kernels; on
-        the CPU (``device="cpu"``) through their plain versions.
-        ``decode``: "region" (ocropy parity), "bestpath" or "region_end"
-        (see :mod:`.ctc`)."""
+        is none), or under a ``mesh`` this rank's device. On a CUDA device
+        they run through the port's kernels; on the CPU (``device="cpu"``)
+        through their plain versions. ``mesh``: shard every batch over the
+        mesh's ``data`` axis (:mod:`..parallel.infer_dp`), the multi-device
+        serving path. ``decode``: "region" (ocropy parity), "bestpath" or
+        "region_end" (see :mod:`.ctc`)."""
         if decode not in ("region", "bestpath", "region_end"):
             raise ValueError(f"unknown decode mode {decode!r}")
         from ..align.api import resolve_device
 
         pin_float32()
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+
+            device = mesh_device(mesh, device)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = params.to(self.device)
         self.codec = codec
         self.target_height = target_height
@@ -191,12 +202,21 @@ class SeqRecognizer:
                 frames = prepared[k][1][:Tb]  # past the ladder top: clip
                 xs[bi, :frames.shape[0]] = frames
                 lengths[bi] = frames.shape[0]
-            lengths_t = torch.from_numpy(lengths).to(self.device)
-            outputs = bilstm_forward_batched(
-                self.params, torch.from_numpy(xs).to(self.device), lengths_t)
-            fr, cl, cnt = (t.cpu().numpy() for t in translate_back_batched(
-                outputs, lengths_t, max_regions=_MAX_REGIONS,
-                mode=self.decode))
+            if self.mesh is not None:
+                from ..parallel.infer_dp import decode_frames_sharded
+
+                fr, cl, cnt = decode_frames_sharded(
+                    self.params, xs, lengths, self.mesh,
+                    max_regions=_MAX_REGIONS, decode=self.decode,
+                    device=self.device)
+            else:
+                lengths_t = torch.from_numpy(lengths).to(self.device)
+                outputs = bilstm_forward_batched(
+                    self.params, torch.from_numpy(xs).to(self.device),
+                    lengths_t)
+                fr, cl, cnt = (t.cpu().numpy() for t in translate_back_batched(
+                    outputs, lengths_t, max_regions=_MAX_REGIONS,
+                    mode=self.decode))
             for bi, k in enumerate(members):
                 orig_i, _, raw_w = prepared[k]
                 n = int(cnt[bi])
@@ -215,6 +235,14 @@ class SeqRecognizer:
             self.device)
 
     def _dispatch_device(self, packed_meta, t_max, max_regions=_MAX_REGIONS):
+        if self.mesh is not None:
+            from ..parallel.infer_dp import recognize_sharded_meta
+
+            return _unpack_wire_rows(recognize_sharded_meta(
+                self.params, packed_meta, self.mesh, t_max=t_max,
+                target_height=self.target_height, pad=self.pad,
+                max_regions=max_regions, decode=self.decode,
+                device=self.device))
         return _unpack_wire_rows(_recognize_device_impl(
             self.params, self._to_device(packed_meta), t_max=t_max,
             target_height=self.target_height, pad=self.pad,
@@ -231,14 +259,15 @@ class SeqRecognizer:
         :class:`DevicePageStrips` feed) WITHOUT waiting for it: returns an
         opaque handle whose device work overlaps whatever the host does
         next (the next folio's raster). Redeem with ``collect_async``.
-        Grey strips run synchronously (the guard of recognize_batch); the
+        Grey strips and a recognizer with a mesh run synchronously (the
+        guard of recognize_batch; every rank's collectives in order); the
         handle then carries the finished rows."""
         if isinstance(strips, DevicePageStrips):
             return self._dispatch_async_page(strips)
         if not strips:
             return ("rows", [], None)
         inks = [np.asarray(s) for s in strips]
-        if not all(g.dtype == bool for g in inks):
+        if self.mesh is not None or not all(g.dtype == bool for g in inks):
             return ("rows", self.recognize_batch(strips), None)
         packed_meta, hs, ws, Wp = self._pack_strips(inks)
         t_max = self._initial_t_max(Wp, ws[: len(inks)])
@@ -255,6 +284,10 @@ class SeqRecognizer:
         cut)."""
         from ..ops.raster_device import extract_strips_packed
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "device-page OCR feeds run on one device (the mesh path "
+                "keeps the host raster; see parallel.batch)")
         if not feed.bboxes:
             return ("rows", [], None)
         shapes = [(int(h), int(w)) for (_, _, h, w) in feed.bboxes]

@@ -19,7 +19,12 @@ The raster stage runs in one of two modes:
   and ``cc_table`` kernels, with the OCR stage cutting the strips from the
   device page (``DevicePageStrips``).
 
-Not ported: the mesh (the JAX package's data-parallel shard of the batch).
+With a ``mesh`` (:mod:`.mesh`), the whole batch is sharded over the
+ranks of its ``data`` axis, every rank holding the same folios: each rank
+rasters every folio on a thread pool, the cross-folio OCR batch is
+sharded (:mod:`.infer_dp`) and so are the NW buckets (``align_pairs``);
+every rank returns the same results, byte-identical to the unsharded
+batch.
 """
 
 from __future__ import annotations
@@ -182,18 +187,34 @@ def process_batch(folios, recognizer, seq_align_params=None,
     angle, strips, peaks) tuples, skipping the raster stage.
     ``min_align_device_cells`` forwards to ``align_pairs`` (0 sends every
     pair to the device). ``raster_workers`` rasters the folios on a
-    thread pool (the native engine's calls release the GIL). ``mesh`` is
-    not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the data-parallel batch is not ported (ROADMAP queue A, "
-            "item 12)")
+    thread pool (the native engine's calls release the GIL).
+
+    ``mesh`` shards the batch over a ``torch.distributed`` mesh's
+    ``data`` axis, the Rodan/Celery folio fan-out's counterpart (reference
+    textAlignment.py:51): the raster runs on a thread pool, the
+    cross-folio OCR batch shards through a copy of ``recognizer`` with the
+    mesh set (the caller's recognizer is left as it is), and the bucketed
+    NW launches shard their pairs. The pipelined OCR worker and the
+    device-page feed are off under a mesh. ``device`` is then this rank's
+    device (None: the mesh's). Output is byte-identical to the unsharded
+    run."""
     if backend not in ("host", "hybrid"):
         raise NotImplementedError(
             f"backend={backend!r}: the all-XLA raster is not ported; use "
             "'hybrid' or 'host' (TEXT_ALIGNMENT_TPU_RASTER=device runs the "
             "raster on the device)")
     pin_float32()
+    if mesh is not None:
+        from .mesh import mesh_device
+
+        device = mesh_device(mesh, device)
+        if recognizer is not None and getattr(recognizer, "mesh",
+                                              None) is not mesh:
+            import copy
+
+            recognizer = copy.copy(recognizer)
+            recognizer.mesh = mesh
+            mesh_device(mesh, recognizer.device)
     device = resolve_device(device)
     timer = timer or StageTimer(enabled=False)
     n = len(folios)
@@ -219,6 +240,7 @@ def process_batch(folios, recognizer, seq_align_params=None,
         and existing_pre is None
         and recognizer is not None
         and getattr(recognizer, "normalize_on_device", False)
+        and getattr(recognizer, "mesh", None) is None
     )
 
     def _raster_one(raw_image):
@@ -241,11 +263,12 @@ def process_batch(folios, recognizer, seq_align_params=None,
 
     if existing_pre is not None:
         pre = list(existing_pre)
-    elif raster_workers:
+    elif mesh is not None or raster_workers:
         from concurrent.futures import ThreadPoolExecutor
 
+        workers = raster_workers or max(1, min(n, os.cpu_count() or 1))
         with timer("preprocess"):
-            with ThreadPoolExecutor(max_workers=raster_workers) as ex:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
                 pre = list(ex.map(lambda f: _raster_one(f[0]), folios))
     else:
         pre = []
@@ -332,7 +355,7 @@ def process_batch(folios, recognizer, seq_align_params=None,
         if backend == "hybrid":
             aligned = align_pairs(pairs, sc,
                                   min_device_cells=min_align_device_cells,
-                                  device=device)
+                                  device=device, mesh=mesh)
             # non-integer/custom scoring falls back per pair
             aligned = [
                 a
