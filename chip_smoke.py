@@ -133,7 +133,26 @@ Phases, each printing one line (any failure exits non-zero):
      729-row shape, with the sharded grid's split (fill, walk, the wires'
      gather and copy, the host replay). Two
      ranks on one card test the partition and the collectives, not
-     scaling.
+     scaling;
+  20. the end-to-end example (text_alignment_tpu_torch/examples/
+     end_to_end_synthetic.py) at its defaults on the card: eight rendered
+     pages (seeds 100-107, 64 lines), the fast recipe from Trainer(seed=1)
+     in minibatches of 32 lines at T = 512 (ni = 48, ns = 100) to the stop
+     loss 0.15, a .pyrnn.gz saved at each rung of the ladder (6.0, 1.5,
+     0.5) and at the end, each reloaded and run through
+     process(backend="hybrid") on the held-out page (seed 999, skewed and
+     speckled). Gates: the example's own PASS (>= 80% of the 70 GT
+     syllables found and ink IoU > 0.50 at the final checkpoint,
+     wrong-line 0 at all four rungs), lstm_scan and lineest_tail launched
+     in that run, the final checkpoint reloaded on the CPU (the plain
+     versions) giving the card's all_chars and syl_boxes JSON, and the
+     perfect-OCR ceiling's JSON byte-identical on the card and the CPU.
+     Reports only: steps to the stop loss, ms a step (median), the
+     training wall, each rung's CER, syllables, bbox and ink IoU and
+     diagnosis counts, the ceiling's IoUs, the final checkpoint once more
+     under TEXT_ALIGNMENT_TPU_TAIL=full (lineest_full on a trained model)
+     beside the default tail, and the phase's wall.
+Each group of phases prints its wall and the script's so far ("wall:").
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -2271,7 +2290,141 @@ def phase_mesh(dev, card, path, page, pages, seq, batch_ms, grids,
           f"{b_wall:.1f} s")
 
 
+EXAMPLE_RUNGS = 4  # the ladder's three rungs and the final checkpoint
+
+
+def rung_text(row) -> str:
+    diag = row["diag"]
+    counts = {k: v for k, v in diag["counts"].items() if v} if diag else {}
+    cer = diag["ocr_cer"] if diag else 1.0
+    return (f"{os.path.basename(row['path'])} (saved at loss "
+            f"{row['save_loss']:.4f}): CER {cer:.4f}, syllables "
+            f"{row['n_pred']}, bbox IoU {row['iou']:.4f}, ink IoU "
+            f"{row['ink_iou']:.4f}, {counts}")
+
+
+def heldout_output(path, page, device):
+    """process() of the example's held-out page on ``device`` with the
+    checkpoint at ``path``, its recognizer normalizing lines on the device
+    (on the CPU the kernels' plain versions): all_chars as (char, ul, lr)
+    and the syl_boxes JSON."""
+    rec = SeqRecognizer.from_pyrnn(path, device=device)
+    rec.normalize_on_device = True
+    out = process(page.image, page.transcript, ocropus_model=rec,
+                  backend="hybrid", verbose=False, device=device)
+    check(out is not None, f"example: nothing aligned on {device}")
+    return ([(c.char, c.ul, c.lr) for c in out[3]],
+            json.dumps(to_JSON_dict(out[0], out[2]), sort_keys=True))
+
+
+def ceiling_json(e2e, page, device):
+    """The example's perfect-OCR rung on ``device``: its syl_boxes JSON."""
+    image_bin, _, angle = preprocess_images(page.image, backend="hybrid")
+    chars = e2e.llocs_ceiling_chars(page, angle, page.image.shape[:2],
+                                    image_bin.shape)
+    out = process(page.image, page.transcript, existing_ocr=chars,
+                  backend="hybrid", verbose=False, device=device)
+    return json.dumps(to_JSON_dict(out[0], out[2]), sort_keys=True)
+
+
+def phase_example(dev, card):
+    """Phase 20: the end-to-end example on the card at its defaults. Gates:
+    the example's own PASS (>= 80% of the GT syllables found and ink IoU
+    > 0.50 at the final checkpoint, wrong-line 0 at every rung), the
+    ladder's four rungs, lstm_scan and lineest_tail launched during its
+    run, the final checkpoint's decode and JSON on the CPU (plain
+    versions) equal to the card's, the ceiling's JSON equal on both.
+    Reports: steps, ms a step, the training wall, every rung, the ceiling,
+    the full chain's quality beside the default tail's, the phase's wall."""
+    import shutil
+
+    from text_alignment_tpu_torch.examples import end_to_end_synthetic as e2e
+
+    t0 = time.perf_counter()
+    args = e2e.parse_args([])
+    _kernels.reset_launches()
+    out = e2e.run(args)
+    launches = {k: _kernels.launches[k] for k in OCR_KERNELS}
+    rows, n_gt = out["rows"], out["n_gt"]
+    step_ms = out["step_ms"]
+    print(f"example: {out['steps']} steps to loss {out['final_loss']:.4f} "
+          f"(stop 0.15), {out['lines']} lines, B = {out['B']}, T = "
+          f"{out['T']}, ni = {NI}, ns = {NS}: ms a step median "
+          f"{np.median(step_ms):.1f} (first {step_ms[0]:.1f}, min "
+          f"{min(step_ms):.1f}, max {max(step_ms):.1f}), training wall "
+          f"{out['train_s']:.1f} s on {out['device']} ({card})")
+    for row in rows:
+        print(f"example rung {rung_text(row)} of {n_gt} ({card})")
+    ceiling = out["ceiling"]
+    if ceiling is not None:
+        print(f"example ceiling: syllables {ceiling['n_pred']}, bbox IoU "
+              f"{ceiling['iou']:.4f}, ink IoU {ceiling['ink_iou']:.4f} "
+              f"({card})")
+    print(f"example: held-out launches {launches}, PASS {out['ok']}")
+    check(torch.device(out["device"]).type == "cuda",
+          f"example: ran on {out['device']}")
+    check(len(rows) == EXAMPLE_RUNGS and ceiling is not None,
+          f"example: {len(rows)} rungs, ceiling {ceiling}")
+    final = rows[-1]
+    check(final["n_pred"] >= 0.8 * n_gt,
+          f"example: {final['n_pred']} of {n_gt} syllables found")
+    check(final["ink_iou"] > 0.50, f"example: ink IoU {final['ink_iou']}")
+    wrong = [r["diag"]["counts"]["wrong-line"] if r["diag"] else None
+             for r in rows]
+    check(wrong == [0] * len(rows), f"example: wrong-line {wrong}")
+    check(out["ok"], "example: its own gate says FAIL")
+    check(all(n >= 1 for n in launches.values()),
+          f"example: the held-out process() calls launched {launches}")
+
+    page, gt = e2e.heldout_page()
+    path = final["path"]
+    card_chars, card_json = heldout_output(path, page, dev)
+    cpu_chars, cpu_json = heldout_output(path, page, "cpu")
+    print(f"example: final checkpoint reloaded on the CPU: all_chars equal "
+          f"{cpu_chars == card_chars} ({len(card_chars)} chars), syl_boxes "
+          f"JSON equal {cpu_json == card_json}")
+    check(cpu_chars == card_chars, "example: the CPU decode differs")
+    check(cpu_json == card_json, "example: the CPU JSON differs")
+    same = ceiling_json(e2e, page, dev) == ceiling_json(
+        e2e, page, "cpu")
+    print(f"example: ceiling JSON byte-identical card vs CPU {same}")
+    check(same, "example: the ceiling's JSON differs on the CPU")
+
+    # the open question of the full chain on a trained model: a report
+    before = _kernels.launches["lineest_full"]
+    old = os.environ.get("TEXT_ALIGNMENT_TPU_TAIL")
+    os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
+    try:
+        n_full, _, ink_full, diag_full = e2e.evaluate_checkpoint(
+            path, page, gt, "hybrid", "region", dev)
+    finally:
+        restore_env("TEXT_ALIGNMENT_TPU_TAIL", old)
+    cer_full = diag_full["ocr_cer"] if diag_full else 1.0
+    cer = final["diag"]["ocr_cer"]
+    print(f"example full chain (TEXT_ALIGNMENT_TPU_TAIL=full, report only): "
+          f"ink IoU {ink_full:.4f} (default tail {final['ink_iou']:.4f}), "
+          f"CER {cer_full:.4f} ({cer:.4f}), syllables {n_full} "
+          f"({final['n_pred']}), lineest_full launches "
+          f"{_kernels.launches['lineest_full'] - before} ({card})")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    print(f"example: phase 20 {time.perf_counter() - t0:.1f} s ({card})")
+
+
+class Walls:
+    """Wall seconds of each group of phases, printed as the group ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, phases: str) -> None:
+        now = time.perf_counter()
+        print(f"wall: phases {phases} {now - self.last:.1f} s, the script "
+              f"{now - self.start:.1f} s")
+        self.last = now
+
+
 def main(argv) -> int:
+    walls = Walls()
     card = phase_card()
     phase_build()
     tl.pin_float32()
@@ -2279,6 +2432,7 @@ def main(argv) -> int:
     if argv == ["--profile"]:
         return profile_only(dev)
     check(not argv, f"unknown arguments {argv} (only --profile)")
+    walls.lap("1-2")
     page = make_folio()
     image, eroded, _ = preprocess_images(page.image, backend="hybrid")
     strips, _, _ = identify_text_lines(image, eroded, backend="hybrid")
@@ -2292,6 +2446,7 @@ def main(argv) -> int:
     strips = gate_strips()
     stats = {"lstm_scan": phase_lstm(rec, fi, dev),
              "lineest_tail": phase_tail(rec, fi, strips, dev)}
+    walls.lap("3-4")
 
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "folio.pyrnn.gz")
@@ -2302,6 +2457,7 @@ def main(argv) -> int:
     prof = profile_ocr(gpu, inks)
     print(f"ocr profile: device busy {prof[0]:.3f} ms of {prof[1]:.3f} ms "
           f"wall (table by kernel on stderr)")
+    walls.lap("5-6")
 
     stats["nw_fill"], packed, nts, nos = phase_nw_fill(dev)
     stats["nw_traceback"] = phase_nw_traceback(dev, packed, nts, nos)
@@ -2316,6 +2472,7 @@ def main(argv) -> int:
     # (phase 5), process() on the large page (phase 10), the 2400^2 grid
     launches.update({k: nw_launches[k] for k in ("nw_fill", "nw_traceback")})
     launches["nw_fill_batched"] = grid_launches["2400"]["nw_fill_batched"]
+    walls.lap("7-10")
 
     stats.update(phase_cc(dev, make_batch_folio(3000), page))
     phase_skew(dev, page)
@@ -2324,16 +2481,23 @@ def main(argv) -> int:
     # the CC kernels' launches: process_batch with the raster on the card
     launches.update({k: batch_launches[k]
                      for k in ("cc_filter", "cc_clean", "cc_table")})
+    walls.lap("11-13")
 
     stats["lineest_full"] = phase_full(rec, fi, strips, dev)
     phase_full_gate(params_np, codec, strips, dev)
     serve_launches = phase_serve(batch_pages, path, dev, tmp.name)
     launches["lineest_full"] = serve_launches["lineest_full"]
+    walls.lap("14-16")
     phase_profile()
+    walls.lap("17")
     phase_train(dev)
+    walls.lap("18")
     phase_mesh(dev, card, path, page, batch_pages, batch_seq, batch_ms,
                grids, tmp.name)
     tmp.cleanup()
+    walls.lap("19")
+    phase_example(dev, card)
+    walls.lap("20")
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"
     cc_pallas = "text_alignment_tpu/ops/cc_pallas.py"

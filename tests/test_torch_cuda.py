@@ -4,8 +4,9 @@ search on the card against the host oracle, a training step on the card
 against the CPU, the golden JSON fixtures of tests/test_torch_golden.py
 through process() and the device raster on the card, and the mesh's
 sharded OCR and grid in one NCCL rank and in two gloo ranks sharing the
-card, against the one-process run, and the mesh of a gloo group started
-outside the launcher, on the card. Marked
+card, against the one-process run, the mesh of a gloo group started
+outside the launcher, on the card, and the end-to-end example's
+evaluate_checkpoint on the card against the CPU. Marked
 ``cuda``; every test skips when ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it, where
@@ -29,6 +30,7 @@ from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_cuda, bidir_scan_reference)
 
+import test_torch_example as example_cases
 import test_torch_golden as golden_cases
 from lineest_tail_model import TAIL_CASES, tail_case
 from nw_window_model import TB_KERNEL, windowed_walk
@@ -721,6 +723,39 @@ def test_train_resume_is_bit_exact_on_the_card(cuda, tmp_path):
     for a, b in zip(tl.params_leaves(straight.params),
                     tl.params_leaves(resumed.params)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", ["trained", "peaky"])
+def test_example_evaluate_checkpoint_on_the_card(cuda, tmp_path, model):
+    """The end-to-end example's evaluate_checkpoint on the card (the
+    recurrence and the device normalizer's tail kernel) against the same
+    call on the CPU, on tests/test_torch_example.py's two files: the
+    Trainer(seed=1) of two steps on the example's first minibatch (trained
+    on the card, its losses to 1e-5 relative of the CPU's) and the peaky
+    seeded weights. The bar is decode equality, which equal syllable
+    counts, IoUs and diagnosis show."""
+    from text_alignment_tpu_torch.examples import end_to_end_synthetic as e2e
+    from text_alignment_tpu_torch.models.codec import Codec
+    from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
+    from text_alignment_tpu_torch.models.train import Trainer
+
+    if model == "trained":
+        codec, batch = example_cases.first_minibatch()
+        trainers = [Trainer(codec=codec, lr=3e-3, seed=1, clip_norm=1.0,
+                            device=d) for d in (cuda, "cpu")]
+        losses = [[tr.step(*batch) for _ in range(2)] for tr in trainers]
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+        path = trainers[0].save(str(tmp_path / "synthetic"))
+    else:
+        path = str(tmp_path / "peaky.pyrnn.gz")
+        save_pyrnn(path, example_cases.peaky_params(), Codec())
+    page, gt = e2e.heldout_page()
+    _kernels.reset_launches()
+    got = e2e.evaluate_checkpoint(path, page, gt, "hybrid", "region", cuda)
+    assert _kernels.launches["lstm_scan"] >= 1
+    assert _kernels.launches["lineest_tail"] >= 1
+    assert got == e2e.evaluate_checkpoint(path, page, gt, "hybrid",
+                                          "region", "cpu")
 
 
 @pytest.mark.parametrize("name", sorted(golden_cases.GOLDEN))

@@ -5,7 +5,9 @@ to end on the CPU, from a .pyrnn.gz model and through the device
 normalizer's plain versions (the full-chain route,
 ``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch runs it with the device
 raster (the CC kernels' plain versions), the NW device path's plain
-versions align a pair as the host fill does, serve drains a spool, the
+versions align a pair as the host fill does, diagnose_alignment
+classifies the page's syllables, the end-to-end example's perfect-OCR rung
+aligns its held-out page, serve drains a spool, the
 Rodan task body, verify_reference and the MEI merge run, a stage cache the
 JAX package wrote yields misses, a training step runs and the CLI's
 ``lines``, ``gtedit`` and ``train`` (with a resume) turn a page into a
@@ -92,6 +94,15 @@ _SCRIPT = textwrap.dedent("""
                        verbose=False, device="cpu")
     js = to_JSON_dict(injected[0], injected[2])
     assert js["syl_boxes"], js
+
+    from text_alignment_tpu_torch.evaluate import diagnose_alignment
+    from text_alignment_tpu_torch.examples import end_to_end_synthetic as e2e
+
+    diag = diagnose_alignment(page.transcript, injected[3],
+                              e2e.gt_syllable_boxes(page))
+    assert diag["counts"]["ok"] >= 1, diag
+    held, held_gt = e2e.heldout_page()
+    assert e2e.ceiling_rung(held, held_gt, "hybrid", "cpu")[0] == len(held_gt)
     t, o = list(page.transcript), list(page.transcript[::-1])
     assert (perform_alignment(t, o, backend="device", device="cpu")
             == perform_alignment(t, o, backend="host"))

@@ -4,8 +4,8 @@ Counterpart of ``text_alignment_tpu/evaluate.py``'s ``grid_search``: the
 729-combination scoring grid (``scoring_grid``) runs every fixture through
 the port's ``process()`` once per combination, with the raster stages and
 the OCR stream injected, so only NW and assembly rerun. The metrics
-(``evaluate_alignment``, ``parse_gt_xml``) and the grid are copies of the
-JAX package's host code.
+(``evaluate_alignment``, ``parse_gt_xml``), the grid and the per-syllable
+``diagnose_alignment`` are copies of the JAX package's host code.
 
 Reference semantics: evaluate_text_alignment.py:16-198. Ground truth is
 PASCAL-VOC-style XML per folio (``{fname}_gt.xml`` with
@@ -127,6 +127,127 @@ DEFAULT_GRID = (
     [0, -3, -5],
     [0, -3, -5],
 )
+
+
+def diagnose_alignment(transcript, all_chars, gt_boxes,
+                       seq_align_params=None, strict=True,
+                       iou_thresh=0.25, rotate_back=None):
+    """Per-syllable failure classification for an aligned page — the
+    instrumented replay of the assembly walk (pipeline.assemble.
+    group_syllables), answering WHERE each ground-truth syllable was
+    lost: OCR (its characters aligned to gaps), alignment placement
+    (boxes exist but land on the wrong line vs GT), or boundary error
+    (right line, weak overlap).
+
+    ``all_chars`` is the pipeline's post-abbreviation CharBox stream
+    (process()'s all_chars return / the pik cache), ``gt_boxes`` the
+    hand/synthetic GT dicts ({'syl', 'ul', 'lr'}). When the page was
+    deskewed, ``all_chars`` live in the ROTATED frame while GT lives in
+    the raw frame — pass ``rotate_back=(angle, rotated_shape,
+    raw_shape)`` to apply the pipeline's own un-rotation
+    (pipeline.assemble.rotate_bboxes) before comparing. Returns a dict:
+    ``categories`` maps syllable index -> (syl, category, detail) with
+    categories in {'ok', 'boundary', 'wrong-line', 'aligned-to-nothing',
+    'no-gt'}, plus 'counts' and 'ocr_cer' (character error rate of the
+    OCR stream measured through the same alignment)."""
+    import re as _re
+
+    from .align.api import perform_alignment
+    from .charbox import CharBox
+    from .lang.syllabify import syllabify_text
+
+    ocr = "".join(c.char for c in all_chars)
+    tra_align, ocr_align = perform_alignment(
+        list(transcript), list(ocr), scoring_system=seq_align_params,
+        backend="host", strict=strict)
+    tra_align = "".join(tra_align)
+    ocr_align = "".join(ocr_align)
+
+    # OCR character error rate through the alignment: non-gap pairs that
+    # mismatch + every gap on either side, over the transcript length
+    errs = sum(1 for a, b in zip(tra_align, ocr_align)
+               if a != b)
+    cer = errs / max(1, len(transcript))
+
+    chars = list(all_chars)
+    for i, ch in enumerate(ocr_align):
+        if ch == "_":
+            chars.insert(i, CharBox("_"))
+    assert len(chars) == len(tra_align)
+
+    # GT boxes by consumption order: match each syllable occurrence to the
+    # next unused GT entry with the same text (GT is emitted in reading
+    # order by both the reference harness and the synthetic generator)
+    gt_pool = list(gt_boxes)
+
+    def take_gt(syl):
+        for k, g in enumerate(gt_pool):
+            if g["syl"] == syl:
+                return gt_pool.pop(k)
+        return None
+
+    categories = {}
+    counts = {"ok": 0, "boundary": 0, "wrong-line": 0,
+              "aligned-to-nothing": 0, "no-gt": 0, "no-match": 0}
+    offset = 0
+    for si, syl in enumerate(syllabify_text(transcript)):
+        if len(syl) < 1:
+            continue
+        syl_regex = "_*".join(_re.escape(c) for c in syl)
+        m = _re.search(syl_regex, tra_align[offset:])
+        if m is None:
+            categories[si] = (syl, "no-match",
+                              "syllable absent from aligned transcript")
+            counts["no-match"] += 1
+            continue
+        start = m.start() + offset
+        end = m.end() + offset
+        offset = end
+        boxes = [x for x in chars[start:end] if x.lr is not None]
+        gt = take_gt(syl)
+        if gt is None:
+            categories[si] = (syl, "no-gt", "")
+            counts["no-gt"] += 1
+            continue
+        if not boxes:
+            n_gap = ocr_align[start:end].count("_")
+            categories[si] = (syl, "aligned-to-nothing",
+                              f"{n_gap}/{end - start} aligned chars are "
+                              f"OCR gaps (chars lost by OCR)")
+            counts["aligned-to-nothing"] += 1
+            continue
+        if len(set(x.uly for x in boxes)) > 1:
+            lower = max(x.uly for x in boxes)
+            boxes = [b for b in boxes if b.uly == lower]
+        pred_cb = CharBox(
+            syl,
+            (min(x.ulx for x in boxes), min(x.uly for x in boxes)),
+            (max(x.lrx for x in boxes), max(x.lry for x in boxes)),
+        )
+        if rotate_back is not None:
+            from .pipeline.assemble import rotate_bboxes
+
+            angle, rot_shape, raw_shape = rotate_back
+            pred_cb = rotate_bboxes([pred_cb], -1 * angle, rot_shape,
+                                    raw_shape)[0]
+        pred = {"ul": pred_cb.ul, "lr": pred_cb.lr}
+        gt_bb = {"ul": tuple(gt["ul"]), "lr": tuple(gt["lr"])}
+        v = IOU(pred, gt_bb)
+        if v >= iou_thresh:
+            categories[si] = (syl, "ok", f"IoU {v:.2f}")
+            counts["ok"] += 1
+        else:
+            gh = gt_bb["lr"][1] - gt_bb["ul"][1] + 1
+            dy = abs(pred["ul"][1] - gt_bb["ul"][1])
+            if dy > gh:
+                categories[si] = (
+                    syl, "wrong-line",
+                    f"pred y {pred['ul'][1]} vs GT {gt_bb['ul'][1]}")
+                counts["wrong-line"] += 1
+            else:
+                categories[si] = (syl, "boundary", f"IoU {v:.2f}")
+                counts["boundary"] += 1
+    return {"categories": categories, "counts": counts, "ocr_cer": cer}
 
 
 def scoring_grid(grid=DEFAULT_GRID) -> np.ndarray:
