@@ -151,8 +151,20 @@ Phases, each printing one line (any failure exits non-zero):
      training wall, each rung's CER, syllables, bbox and ink IoU and
      diagnosis counts, the ceiling's IoUs, the final checkpoint once more
      under TEXT_ALIGNMENT_TPU_TAIL=full (lineest_full on a trained model)
-     beside the default tail, and the phase's wall.
-Each group of phases prints its wall and the script's so far ("wall:").
+     beside the default tail, and the phase's wall;
+  21. backend="device" (ops/device.py): process() on the phase-5 folio
+     (~49k black runs, no fallback) on the card, one warm-up and three
+     measured calls, JSON byte-identical to backend="hybrid" on the card
+     and to backend="device" on the CPU; cc_clean, cc_table, nw_fill,
+     nw_traceback, lstm_scan and lineest_tail launched in the measured
+     calls; ms of both backends with the stage split; phase 13's 8 folios
+     through process_batch(backend="device") give phase 13's JSON, ms per
+     folio beside phase 13's modes; rodan_job.run_task with its default
+     backend on the folio gives process()'s JSON; the 499 x 40 px
+     serpentine is one component on the card (the JAX device labeling
+     counts 59).
+The phases run one at a time: 1-17, 21, then 18-20. Each group of phases
+prints its wall and the script's so far ("wall:").
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -2410,6 +2422,153 @@ def phase_example(dev, card):
     print(f"example: phase 20 {time.perf_counter() - t0:.1f} s ({card})")
 
 
+DEVICE_KERNELS = ("cc_clean", "cc_table", "nw_fill", "nw_traceback",
+                  "lstm_scan", "lineest_tail")
+DEVICE_CALLS = 3  # measured process() calls of each backend in phase 21
+
+
+def serpentine(n: int = 250, width: int = 40) -> np.ndarray:
+    """One component: n one-pixel bars ``width`` px wide, joined at
+    alternating ends, (2n - 1) x width px. At n = 250 the JAX package's
+    device labeling stops after its 192 rounds and counts 59."""
+    img = np.zeros((2 * n - 1, width), bool)
+    img[::2] = True
+    for i in range(n - 1):
+        img[2 * i + 1, width - 1 if i % 2 == 0 else 0] = True
+    return img
+
+
+def timed_process(page, path, backend, device, n):
+    """JSON of process() and its ms and stage ms (medians of n calls)."""
+    timers, totals = [], []
+    for _ in range(n):
+        timer = stage_timer(enabled=True)
+        out, ms = wall_ms(lambda: process(
+            page.image, page.transcript, ocropus_model=path,
+            backend=backend, verbose=False, device=device, timer=timer))
+        totals.append(ms)
+        timers.append(timer)
+    check(out is not None, f"process(backend={backend!r}) returned None")
+    stages = {k: round(float(np.median([t.totals[k] for t in timers])) * 1e3,
+                       3) for k in timers[0].totals}
+    js = json.dumps(to_JSON_dict(out[0], out[2]), sort_keys=True)
+    return js, float(np.median(totals)), stages
+
+
+def device_raster_split(image, dev, n: int = 3) -> dict:
+    """Host-clock ms of each step of preprocess_images(backend="device")
+    on ``image`` (medians of n runs), each step ending in a sync."""
+    from text_alignment_tpu_torch.ops import device as dv
+    from text_alignment_tpu_torch.ops import fixedpoint as fxp
+
+    runs = []
+    for _ in range(n):
+        ms = {}
+
+        def step(name, fn):
+            out, ms[name] = wall_ms(fn)
+            return out
+
+        grey = step("greyscale", lambda: dv.to_greyscale(image, dev))
+        t = step("histogram", lambda: dv._otsu_from_hist(
+            dv.grey_histogram(grey, dev).cpu().numpy()))
+        img = step("cleanup chain", lambda: dv.preproc_stage1(
+            grey, t, 100, 150, device=dev))
+        angle = step("skew", lambda: dv.rotation_angle_projections(
+            img, device=dev))
+        H, W = img.shape
+        H2, W2 = fxp.rotated_canvas(H, W, angle)
+        packed = step("rotate + erode + project",
+                      lambda: dv.rotate_erode_project(
+                          img, *fxp.rotation_coeffs(angle), H2, W2, 1, 2,
+                          dev))
+        step("download + unpack", lambda: [
+            dv.unpack_bool(p.cpu().numpy(), W2) for p in packed[:2]])
+        runs.append(ms)
+    return {k: round(float(np.median([r[k] for r in runs])), 3)
+            for k in runs[0]}
+
+
+def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
+    """Phase 21: backend="device" (ops/device.py: the raster on the card
+    through cc_clean and cc_table, NW always on the card) through
+    process(), process_batch and the Rodan job, against the hybrid route
+    and the CPU, and the serpentine page."""
+    from text_alignment_tpu_torch import rodan_job
+    from text_alignment_tpu_torch.ops import device as dv
+    from text_alignment_tpu_torch.pipeline.preprocess import _cc_table
+
+    t0 = time.perf_counter()
+    run_process(page, path)  # warm-up of both routes
+    process(page.image, page.transcript, ocropus_model=path,
+            backend="device", verbose=False, device=dev)
+    _kernels.reset_launches()
+    js, ms, stages = timed_process(page, path, "device", dev, DEVICE_CALLS)
+    launches = dict(_kernels.launches)
+    js_h, ms_h, stages_h = timed_process(page, path, "hybrid", dev,
+                                         DEVICE_CALLS)
+    js_cpu, ms_cpu, _ = timed_process(page, path, "device",
+                                      torch.device("cpu"), 1)
+    print(f"device backend: folio process(backend=\"device\") {ms:.1f} ms "
+          f"(median of {DEVICE_CALLS}), stages ms {stages}; "
+          f"backend=\"hybrid\" {ms_h:.1f} ms, stages {stages_h}; CPU "
+          f"{ms_cpu:.1f} ms; launches {launches} ({card})")
+    print(f"device backend: the folio's raster by step, ms "
+          f"{device_raster_split(page.image, dev)} ({card})")
+    check(js == js_h, "process(backend='device') differs from 'hybrid' on "
+          "the card")
+    check(js == js_cpu, "process(backend='device') differs between the card "
+          "and the CPU")
+    for name in DEVICE_KERNELS:
+        check(launches[name] >= 1, f"kernel {name} was not launched by "
+              "process(backend='device')")
+
+    rec = _resolve_recognizer(path, "device", dev)
+    folios = [(pg.image, pg.transcript) for pg in pages]
+    process_batch(folios[:2], rec, device=dev)  # warm-up
+    timer = stage_timer(enabled=True)
+    res, b_ms = wall_ms(lambda: process_batch(folios, rec, timer=timer,
+                                              device=dev))
+    same = batch_json(res) == seq
+    print(f"device backend: process_batch(backend=\"device\") "
+          f"{b_ms / len(folios):.1f} ms per folio, stages ms per folio "
+          f"{per_folio(timer, len(folios))}; phase 13 (b) "
+          f"{batch_ms['device']:.1f}, (a) {batch_ms['host']:.1f}; JSON "
+          f"identical to phase 13 {same} ({card})")
+    check(same, "process_batch(backend='device') differs from phase 13")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        from PIL import Image
+
+        img_path = os.path.join(tmp, "folio.png")
+        Image.fromarray(page.image).save(img_path)
+        txt_path = os.path.join(tmp, "folio.txt")
+        with open(txt_path, "w") as f:
+            f.write(page.transcript)
+        out_path = os.path.join(tmp, "folio.json")
+        ok = rodan_job.run_task(
+            {"Text Layer": [{"resource_path": img_path}],
+             "Transcript": [{"resource_path": txt_path}]},
+            {"OCR Model": path}, {"JSON": [{"resource_path": out_path}]})
+        with open(out_path) as f:
+            rodan = json.dumps(json.load(f), sort_keys=True)
+    print(f"device backend: rodan_job.run_task (default backend) ok {ok}, "
+          f"JSON identical {rodan == js}")
+    check(ok and rodan == js, "the Rodan job's JSON differs from process()")
+
+    serp = serpentine()
+    _, count = dv.cc_stats_compact(serp, device=dev)
+    rows = len(_cc_table(serp, "device", dev))
+    hybrid_rows = len(_cc_table(serp, "hybrid"))
+    print(f"device backend: serpentine {serp.shape[0]} x {serp.shape[1]}: "
+          f"{count} component(s) on the card, {rows} table row(s), hybrid "
+          f"{hybrid_rows}")
+    check(count == rows == hybrid_rows == 1,
+          "the serpentine is not one component")
+    print(f"device backend: phase 21 {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+
+
 class Walls:
     """Wall seconds of each group of phases, printed as the group ends."""
 
@@ -2490,13 +2649,16 @@ def main(argv) -> int:
     walls.lap("14-16")
     phase_profile()
     walls.lap("17")
+    phase_device_backend(dev, card, path, page, batch_pages, batch_seq,
+                         batch_ms)
+    walls.lap("21")
     phase_train(dev)
     walls.lap("18")
     phase_mesh(dev, card, path, page, batch_pages, batch_seq, batch_ms,
                grids, tmp.name)
-    tmp.cleanup()
     walls.lap("19")
     phase_example(dev, card)
+    tmp.cleanup()
     walls.lap("20")
 
     pallas = "text_alignment_tpu/align/nw_pallas.py"

@@ -5,8 +5,9 @@ against the CPU, the golden JSON fixtures of tests/test_torch_golden.py
 through process() and the device raster on the card, and the mesh's
 sharded OCR and grid in one NCCL rank and in two gloo ranks sharing the
 card, against the one-process run, the mesh of a gloo group started
-outside the launcher, on the card, and the end-to-end example's
-evaluate_checkpoint on the card against the CPU. Marked
+outside the launcher, on the card, the end-to-end example's
+evaluate_checkpoint on the card against the CPU, and ``backend="device"``
+(ops/device.py) on the card against the CPU and the golden JSON. Marked
 ``cuda``; every test skips when ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it, where
@@ -771,9 +772,104 @@ def test_golden_json_on_the_card(cuda, name, monkeypatch):
     page, transcript, ocr = make()
     monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", "device")
     res, = process_batch([(page.image, transcript)], None,
+                         backend="hybrid", preproc_params=params,
+                         existing_ocr=[ocr], device=cuda)
+    assert (None if res is None else res.json_dict) == want
+
+
+@pytest.mark.parametrize("name", sorted(golden_cases.GOLDEN))
+def test_golden_json_on_the_device_backend(cuda, name):
+    """process(backend="device") on the card (ops/device.py through the CC
+    kernels, NW through the fill and traceback kernels) and
+    process_batch with its default backend, "device", give the golden
+    JSON."""
+    from text_alignment_tpu_torch.parallel import process_batch
+
+    want = golden_cases.golden(name)
+    _kernels.reset_launches()
+    assert golden_cases.run_golden(name, "device", cuda) == want
+    for kernel in ("cc_clean", "cc_table", "nw_fill", "nw_traceback"):
+        assert _kernels.launches[kernel] >= 1, kernel
+    make, params = golden_cases.GOLDEN[name]
+    page, transcript, ocr = make()
+    res, = process_batch([(page.image, transcript)], None,
                          preproc_params=params, existing_ocr=[ocr],
                          device=cuda)
     assert (None if res is None else res.json_dict) == want
+
+
+def _serpentine(n=250, width=40):
+    img = np.zeros((2 * n - 1, width), bool)
+    img[::2] = True
+    for i in range(n - 1):
+        img[2 * i + 1, width - 1 if i % 2 == 0 else 0] = True
+    return img
+
+
+def _device_op_cases():
+    """ops/device.py calls on seeded pages, each a function of the
+    device."""
+    from text_alignment_tpu_torch.ops import device as dv
+    from text_alignment_tpu_torch.ops import fixedpoint as fxp
+
+    rng = np.random.default_rng(5)
+    r = rng.random((300, 257)) < 0.3
+    dense = rng.random((24, 6000)) < 0.5  # > 4096 runs a band
+    rgb = rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (90, 120, 4), dtype=np.uint8)
+    mask = np.arange(300) % 37 < 2
+    cf, sf = fxp.rotation_coeffs(1.3)
+    H2, W2 = fxp.rotated_canvas(300, 257, 1.3)
+    return {
+        "to_onebit_rgb": lambda d: dv.to_onebit(rgb, d),
+        "to_onebit_rgba": lambda d: dv.to_onebit(rgba, d),
+        "grey_histogram": lambda d: dv.grey_histogram(
+            dv.to_greyscale(rgb, d), d),
+        "despeckle": lambda d: dv.despeckle(r, 3, d),
+        "despeckle_dense": lambda d: dv.despeckle(dense, 3, d),
+        "despeckle_white": lambda d: dv.despeckle_white(r, 3, d),
+        "remove_small_ccs": lambda d: dv.remove_small_ccs(r, 4, d),
+        "remove_tall_ccs": lambda d: dv.remove_tall_ccs(r, 6, d),
+        "remove_big_ccs": lambda d: dv.remove_big_ccs(r, 20, d),
+        "cc_label": lambda d: dv.cc_label(r, d),
+        "cc_stats_compact": lambda d: dv.cc_stats_compact(r, device=d),
+        "cc_stats_past_max_ccs": lambda d: dv.cc_stats_compact(
+            r, 50, device=d),
+        "filter_runs": lambda d: dv.filter_narrow_runs(r, 3, "white", d),
+        "preproc_stage1": lambda d: dv.preproc_stage1(
+            dv.to_greyscale(rgb, d), 120, 3, 30, device=d),
+        "preproc_stage1_dense": lambda d: dv.preproc_stage1(
+            np.where(dense, 0, 255).astype(np.uint8), 120, 3, 10,
+            sat_by_area=True, device=d),
+        "rotate_onebit": lambda d: dv.rotate_onebit(r, -4.2, d),
+        "rotate_erode_project": lambda d: dv.rotate_erode_project(
+            r, cf, sf, H2, W2, 1, 2, d),
+        "shear_projections": lambda d: dv.shear_projections(
+            r, fxp.shear_shifts_batch([-3.0, 0.0, 1.5], 257), d),
+        "rotation_angle_projections": lambda d:
+            dv.rotation_angle_projections(r, device=d),
+        "erase_and_ccstats": lambda d: dv.erase_and_ccstats(r, mask,
+                                                            device=d),
+        "serpentine": lambda d: dv.cc_stats_compact(_serpentine(),
+                                                    device=d),
+    }
+
+
+def _as_np(x):
+    if isinstance(x, tuple):
+        return [_as_np(v) for v in x]
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("name", sorted(_device_op_cases()))
+def test_device_ops_on_the_card_match_the_cpu(cuda, name):
+    """Each ops/device.py function on the card (the CC kernels, torch ops)
+    gives its CPU result (the CC kernels' plain versions) bit for bit."""
+    fn = _device_op_cases()[name]
+    got, want = _as_np(fn(cuda)), _as_np(fn(torch.device("cpu")))
+    np.testing.assert_equal(got, want)
+    if name == "serpentine":
+        assert got[1] == 1
 
 
 def _device_strips(page, params, despeckle_amt, cuda):

@@ -95,6 +95,15 @@ def test_ceiling_matches_jax(jax_example, backend):
     assert got[0] == len(gt) and got[2] > 0.5
 
 
+def test_ceiling_on_the_device_backend():
+    """--backend device: the ceiling rung on the device raster (its plain
+    versions on the CPU) scores as the hybrid one."""
+    page, gt = port.heldout_page()
+    got = port.ceiling_rung(page, gt, "device", device="cpu")
+    assert got == port.ceiling_rung(page, gt, "hybrid", device="cpu")
+    assert got[0] == len(gt)
+
+
 def first_minibatch():
     """The fast recipe's pool and its first minibatch, as the example
     draws them."""

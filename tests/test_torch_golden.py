@@ -7,6 +7,8 @@ their host == hybrid engine parity, and that module's boundary cases
 saturated-CC and noise-area thresholds) on the host and hybrid engines.
 The bar is JSON equal to the golden file, or the reference's decision at
 the boundary. Every fixture injects its OCR, so no weights are needed.
+``backend="device"`` (``ops/device.py``: the CC kernels' plain versions
+here) runs every case as well, on the CPU device.
 
 The pages are made by the port's own copy of ``synth``, so this module
 imports no JAX: tests/test_torch_cuda.py imports its fixtures for the card
@@ -112,7 +114,10 @@ def run_golden(name, backend, device):
     return to_JSON_dict(res[0], res[2])
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+BACKENDS = ["host", "hybrid", "device"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_end_to_end_golden_json(backend):
     assert run_golden("e2e_syn31", backend, "cpu") == golden("e2e_syn31")
 
@@ -129,27 +134,35 @@ def test_adversarial_golden_and_engine_parity(name):
             f"{name}: vacuous fixture"
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+@pytest.mark.parametrize("name", sorted(n for n in GOLDEN
+                                        if n.startswith("adv_")))
+def test_adversarial_golden_on_the_device_backend(name):
+    assert run_golden(name, "device", "cpu") == golden(name)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_skew_limit_detection(backend):
     """The coarse-to-fine search recovers corrective angles at the +-6 deg
     search boundary (textAlignPreprocessing.py:183 range)."""
     for sign in (+1, -1):
         page, _, _ = fixture_skew(sign)
-        _, _, angle = preprocess_images(page.image, backend=backend)
+        _, _, angle = preprocess_images(page.image, backend=backend,
+                                        device="cpu")
         assert abs(angle - (-sign * 5.9)) < 0.5, (sign, angle)
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_touching_lines_separator_cut(backend):
     """The bridged lines must still give one strip per text line."""
     page, _, _ = fixture_touching_lines()
-    image, eroded, _ = preprocess_images(page.image, backend=backend)
+    image, eroded, _ = preprocess_images(page.image, backend=backend,
+                                         device="cpu")
     strips, peaks, _ = identify_text_lines(image, eroded, backend=backend,
-                                           params=PARAMS)
+                                           params=PARAMS, device="cpu")
     assert len(peaks) == 3 and len(strips) == 3
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_empty_page_skips_folio(backend):
     """All-white page -> no lines -> empty OCR -> process returns None."""
     blank = np.full((400, 600, 3), 255, np.uint8)
@@ -171,10 +184,11 @@ def sat_boundary_page():
     return page
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_sat_area_nrows_boundary(backend):
     image, _, _ = preprocess_images(sat_boundary_page().image,
-                                    backend=backend, correct_rotation=False)
+                                    backend=backend, correct_rotation=False,
+                                    device="cpu")
     image = np.asarray(image)
     assert not image[300:451, 100:103].any(), "151-row bar kept"
     assert image[300:450, 700:703].all(), "150-row bar removed"
@@ -205,11 +219,12 @@ def check_noise_strips(strips):
     assert s.offset_x >= 100, "area-100 CC should have been dropped"
 
 
-@pytest.mark.parametrize("backend", ["host", "hybrid"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_noise_area_boundary(backend):
     image, eroded, _ = preprocess_images(noise_boundary_page().image,
                                          backend=backend, despeckle_amt=20,
-                                         correct_rotation=False)
+                                         correct_rotation=False,
+                                         device="cpu")
     strips, _, _ = identify_text_lines(image, eroded, backend=backend,
-                                       params=NOISE_PARAMS)
+                                       params=NOISE_PARAMS, device="cpu")
     check_noise_strips(strips)

@@ -4,8 +4,9 @@ text_alignment_tpu_torch imports, process() runs a small synthetic page end
 to end on the CPU, from a .pyrnn.gz model and through the device
 normalizer's plain versions (the full-chain route,
 ``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch runs it with the device
-raster (the CC kernels' plain versions), the NW device path's plain
-versions align a pair as the host fill does, diagnose_alignment
+raster (the CC kernels' plain versions), process(backend="device")
+gives the hybrid JSON (ops/device.py's plain versions), the NW device
+path's plain versions align a pair as the host fill does, diagnose_alignment
 classifies the page's syllables, the end-to-end example's perfect-OCR rung
 aligns its held-out page, serve drains a spool, the
 Rodan task body, verify_reference and the MEI merge run, a stage cache the
@@ -94,6 +95,10 @@ _SCRIPT = textwrap.dedent("""
                        verbose=False, device="cpu")
     js = to_JSON_dict(injected[0], injected[2])
     assert js["syl_boxes"], js
+    on_device = process(page.image, page.transcript,
+                        existing_ocr=page.char_boxes, backend="device",
+                        verbose=False, device="cpu")
+    assert to_JSON_dict(on_device[0], on_device[2]) == js
 
     from text_alignment_tpu_torch.evaluate import diagnose_alignment
     from text_alignment_tpu_torch.examples import end_to_end_synthetic as e2e

@@ -181,8 +181,8 @@ def test_process_from_pyrnn_path(case, tmp_path):
     assert to_JSON_dict(out_t[0], out_t[2]) == jax_json(out_j[0], out_j[2])
 
 
-def test_unported_options_raise(case):
+def test_unknown_backend_raises(case):
     page = case[0]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown backend 'xla'"):
         process(page.image, page.transcript, existing_ocr=[],
-                backend="device", device="cpu")
+                backend="xla", device="cpu")

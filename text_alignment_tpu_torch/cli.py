@@ -252,7 +252,8 @@ def cmd_evaluate(args):
     scores = []
     for fx, ind in zip(fixtures, eval_inds):
         eval_img, _, _ = preprocess_images(
-            fx["raw_image"], correct_rotation=False, backend=args.backend)
+            fx["raw_image"], correct_rotation=False, backend=args.backend,
+            device=args.device)
         result = process(
             fx["raw_image"], fx["transcript"], seq_align_params=scoring,
             existing_ocr=fx["existing_ocr"], verbose=False,
@@ -431,16 +432,18 @@ def cmd_lines(args):
     from .gtedit import extract_lines
     from .pipeline.preprocess import PreprocParams
 
-    # the crops are cut on the host; the device is resolved all the same,
-    # as every subcommand's is (no card and no --device cpu: it raises)
-    resolve_device(args.device)
+    # the crops are cut on the host, the raster runs on the device with
+    # --backend device; the device is resolved all the same, as every
+    # subcommand's is (no card and no --device cpu: it raises)
+    device = resolve_device(args.device)
     pp = (PreprocParams(filter_size=args.filter_size)
           if args.filter_size else None)
     total = 0
     for page in args.pages:
         stem = os.path.splitext(os.path.basename(page))[0]
         paths = extract_lines(_load_image(page), args.out_dir, stem,
-                              backend=args.backend, preproc_params=pp)
+                              backend=args.backend, preproc_params=pp,
+                              device=device)
         print(f"{page}: {len(paths)} line crop(s) -> {args.out_dir}")
         total += len(paths)
     if total == 0:
@@ -518,7 +521,8 @@ def main(argv=None):
     a.add_argument("--pickle-dir", default=None)
     a.add_argument("--out-imgs", default=None)
     a.add_argument("--folios", nargs="+", required=True)
-    a.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    a.add_argument("--backend", default="hybrid",
+                   choices=["host", "hybrid", "device"])
     _device_arg(a, "the OCR, the device raster and the device NW fill")
     a.add_argument("--cache-dir", default=None,
                    help="content-addressed stage cache directory")
@@ -541,8 +545,10 @@ def main(argv=None):
     e.add_argument("--pickle-dir", default="./pik")
     e.add_argument("--gt-dir", default="./ground-truth-alignments")
     e.add_argument("--folios", nargs="+", required=True)
-    e.add_argument("--backend", default="host", choices=["host", "hybrid"])
-    _device_arg(e, "the grid's batched NW fill and process()")
+    e.add_argument("--backend", default="host",
+                   choices=["host", "hybrid", "device"])
+    _device_arg(e, "the grid's batched NW fill, the device raster and "
+                "process()")
     e.add_argument("--grid", action="store_true",
                    help="run the 729-combination scoring grid search "
                    "instead of a single-scoring evaluation")
@@ -564,8 +570,9 @@ def main(argv=None):
     vr.add_argument("--folios", nargs="+", default=None,
                     help="restrict to these folio fnames (as in the png "
                          "filenames)")
-    vr.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
-    _device_arg(vr, "the OCR and the device NW fill")
+    vr.add_argument("--backend", default="hybrid",
+                    choices=["host", "hybrid", "device"])
+    _device_arg(vr, "the OCR, the device raster and the device NW fill")
     vr.add_argument("--no-reuse-ocr", action="store_true",
                     help="ignore pik/ caches and run the recognizer from "
                          "the .pyrnn.gz model (full-stack parity)")
@@ -581,8 +588,9 @@ def main(argv=None):
     m.add_argument("--model", default=None)
     m.add_argument("--ocr-pickle", default=None)
     m.add_argument("--overlay", default=None, help="debug overlay PNG path")
-    m.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
-    _device_arg(m, "the OCR and the device NW fill")
+    m.add_argument("--backend", default="hybrid",
+                   choices=["host", "hybrid", "device"])
+    _device_arg(m, "the OCR, the device raster and the device NW fill")
     m.add_argument("--verbose", action="store_true")
     m.set_defaults(func=cmd_mei)
 
@@ -610,11 +618,12 @@ def main(argv=None):
         "'ocropus page segmentation' training step, README.md:52-56)")
     li.add_argument("pages", nargs="+", help="page image PNGs")
     li.add_argument("--out-dir", default="./lines")
-    li.add_argument("--backend", default="host", choices=["host", "hybrid"])
+    li.add_argument("--backend", default="host",
+                    choices=["host", "hybrid", "device"])
     li.add_argument("--filter-size", type=int, default=0,
                     help="projection smoothing half-window override "
                     "(reference filter_size=30; smaller for low-res pages)")
-    _device_arg(li, "the subcommand (the crops are cut on the host)")
+    _device_arg(li, "the device raster (the crops are cut on the host)")
     li.set_defaults(func=cmd_lines)
 
     g = sub.add_parser(
@@ -631,7 +640,8 @@ def main(argv=None):
     gh.add_argument("--model", default=None,
                     help=".pyrnn.gz recognizer to prefill missing "
                     "transcriptions by OCR")
-    gh.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    gh.add_argument("--backend", default="hybrid",
+                    choices=["host", "hybrid", "device"])
     _device_arg(gh, "the --model prefill's OCR")
     gh.set_defaults(func=cmd_gtedit)
     ge = gsub.add_parser(
@@ -651,7 +661,8 @@ def main(argv=None):
         "analog)")
     s.add_argument("--spool", required=True, help="job spool directory")
     s.add_argument("--model", help=".pyrnn.gz recognizer checkpoint")
-    s.add_argument("--backend", default="hybrid", choices=["host", "hybrid"])
+    s.add_argument("--backend", default="hybrid",
+                   choices=["host", "hybrid", "device"])
     _device_arg(s, "the OCR, the device raster and the device NW fill")
     s.add_argument("--poll", type=float, default=0.2,
                    help="idle poll interval, seconds")

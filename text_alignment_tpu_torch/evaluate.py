@@ -317,15 +317,17 @@ def grid_search(fixtures, shuffle=True, seed=None, backend="host",
     prepared = []
     for fx in fixtures:
         eval_img, _, _ = preprocess_images(
-            fx["raw_image"], correct_rotation=False, backend=backend)
+            fx["raw_image"], correct_rotation=False, backend=backend,
+            device=device)
         pre = fx.get("existing_preproc_images")
         if pre is None:
             pre = preprocess_images(fx["raw_image"], backend=backend,
-                                    params=fx.get("preproc_params"))
+                                    params=fx.get("preproc_params"),
+                                    device=device)
         image, eroded, _ = pre
         strips, peaks, _ = identify_text_lines(
             image, eroded, backend=backend, verbose=False,
-            params=fx.get("preproc_params"))
+            params=fx.get("preproc_params"), device=device)
 
         # the OCR stream process() aligns: the abbreviation-expanded chars
         grid_aligns = None

@@ -19,11 +19,12 @@ PASS gate. The card is the default device; ``--device cpu`` runs it on the
 CPU, with the kernels' plain versions.
 
 Run: python -m text_alignment_tpu_torch.examples.end_to_end_synthetic
-     [--iters N] [--backend hybrid|host] [--device cuda|cpu]
+     [--iters N] [--backend hybrid|host|device] [--device cuda|cpu]
 
-On the card, ``--backend hybrid`` (the default) runs the held-out page's
-OCR through the recurrence kernel and the device line normalizer's tail
-kernel, as ``process()`` does with a model path there.
+On the card, ``--backend hybrid`` (the default) and ``device`` run the
+held-out page's OCR through the recurrence kernel and the device line
+normalizer's tail kernel, as ``process()`` does with a model path there;
+``device`` also rasters its pages on the card (``ops/device.py``).
 
 The default "fast" recipe — clipped Adam over a training pool that
 includes skewed+speckled pages (the held-out distribution) — converges in
@@ -107,11 +108,12 @@ def evaluate_checkpoint(model_path, page, gt, backend, decode, device=None):
     """Held-out page through the real pipeline with the given checkpoint
     on ``device`` (None: the card); returns (n_pred, bbox_iou, ink_iou,
     diag dict). The recognizer normalizes lines on the device where
-    ``process()`` would for a model path: ``backend="hybrid"`` on a
-    card."""
+    ``process()`` would for a model path: ``backend="hybrid"`` or
+    ``"device"`` on a card."""
     device = resolve_device(device)
     rec = SeqRecognizer.from_pyrnn(model_path, decode=decode, device=device)
-    rec.normalize_on_device = backend == "hybrid" and device.type == "cuda"
+    rec.normalize_on_device = (backend in ("hybrid", "device")
+                               and device.type == "cuda")
     result = process(page.image, page.transcript, ocropus_model=rec,
                      backend=backend, verbose=False, device=device)
     if result is None:
@@ -119,12 +121,14 @@ def evaluate_checkpoint(model_path, page, gt, backend, decode, device=None):
     syl_boxes, image_bin, peaks, all_chars = result
     gt_eval = [dict(g) for g in gt]
     image_unrot, _, _ = preprocess_images(page.image, backend=backend,
-                                          correct_rotation=False)
+                                          correct_rotation=False,
+                                          device=device)
     align_boxes = [
         {"syl": cb.char, "ul": cb.ul, "lr": cb.lr} for cb in syl_boxes
     ]
     iou, ink_iou = evaluate_alignment(gt_eval, align_boxes, image_unrot)
-    _, _, det_angle = preprocess_images(page.image, backend=backend)
+    _, _, det_angle = preprocess_images(page.image, backend=backend,
+                                        device=device)
     diag = diagnose_alignment(
         page.transcript, all_chars, gt,
         rotate_back=(det_angle, image_bin.shape, page.image.shape[:2]))
@@ -164,7 +168,8 @@ def llocs_ceiling_chars(page, angle, raw_shape, rot_shape):
 def ceiling_rung(page, gt, backend, device=None):
     """(bbox IoU, ink IoU) of the pipeline fed PERFECT OCR through the
     llocs contract — the demo's quality ceiling, measured not asserted."""
-    image_bin, _, angle = preprocess_images(page.image, backend=backend)
+    image_bin, _, angle = preprocess_images(page.image, backend=backend,
+                                            device=device)
     chars = llocs_ceiling_chars(page, angle, page.image.shape[:2],
                                 image_bin.shape)
     result = process(page.image, page.transcript, existing_ocr=chars,
@@ -173,7 +178,8 @@ def ceiling_rung(page, gt, backend, device=None):
         return 0, 0.0, 0.0
     syl_boxes, _, _, _ = result
     image_unrot, _, _ = preprocess_images(page.image, backend=backend,
-                                          correct_rotation=False)
+                                          correct_rotation=False,
+                                          device=device)
     ab = [{"syl": cb.char, "ul": cb.ul, "lr": cb.lr} for cb in syl_boxes]
     iou, ink = evaluate_alignment([dict(g) for g in gt], ab, image_unrot)
     return len(syl_boxes), iou, ink
@@ -191,7 +197,7 @@ def parse_args(argv=None):
     ap.add_argument("--iters", type=int, default=2500)
     ap.add_argument("--train-pages", type=int, default=4)
     ap.add_argument("--backend", default="hybrid",
-                    choices=["host", "hybrid"])
+                    choices=["host", "hybrid", "device"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; cpu only "
                     "when asked)")
@@ -253,10 +259,11 @@ def run(args) -> dict:
         page = make_page(np.random.default_rng(seed), speckles=speckles,
                          angle=angle, **PAGE_KW)
         image, eroded, _ = preprocess_images(page.image,
-                                             backend=args.backend)
+                                             backend=args.backend,
+                                             device=device)
         strips, _, _ = identify_text_lines(image, eroded,
                                            backend=args.backend,
-                                           verbose=False)
+                                           verbose=False, device=device)
         lt = line_texts(page)
         assert len(strips) == len(lt), (len(strips), len(lt))
         for s, t in zip(strips, lt):

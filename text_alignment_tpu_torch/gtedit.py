@@ -82,15 +82,19 @@ def save_line_png(img, path: str) -> None:
 
 
 def extract_lines(page_image, out_dir: str, stem: str,
-                  backend: str = "host", preproc_params=None) -> list[str]:
+                  backend: str = "host", preproc_params=None,
+                  device=None) -> list[str]:
     """Segment ``page_image`` into per-line training crops under
     ``out_dir`` (named ``{stem}_{i:04d}.png``). Uses the training cleaner's
     raster recipe via ``training_data.union_line_strips`` (reference
-    clean_images_for_training.py:43-56). Returns the written paths."""
+    clean_images_for_training.py:43-56); ``device`` is the torch device
+    of ``backend="device"`` (None: the card). Returns the written
+    paths."""
     from .training_data import union_line_strips
 
     _, strips = union_line_strips(page_image, backend=backend,
-                                  preproc_params=preproc_params)
+                                  preproc_params=preproc_params,
+                                  device=device)
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for i, s in enumerate(strips):

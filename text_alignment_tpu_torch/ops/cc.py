@@ -153,6 +153,14 @@ def _labels(ry, x0, x1, W: int):
         label = new
 
 
+def run_labels(page, H: int, W: int):
+    """Every black run of the page and its component's root, plain
+    PyTorch on the page's device: (ry, x0, x1, root) int64 tensors in scan
+    order, ``root`` the smallest run index of the run's component."""
+    ry, x0, x1, _ = _runs(page, H, W, False, H * W)
+    return ry, x0, x1, _labels(ry, x0, x1, W)
+
+
 def _component_stats(ry, x0, x1, label, want_x: bool):
     n = ry.numel()
     dev = ry.device

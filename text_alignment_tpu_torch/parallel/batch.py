@@ -9,15 +9,19 @@ align_pairs`, one launch per size bucket), then host assembly. Output is
 byte-identical to the JAX package's ``process_batch`` and to the port's
 sequential ``process()``.
 
-The raster stage runs in one of two modes:
+The raster stage runs in one of three modes:
 
-- default: the port's ``raster_stream`` (the native host raster, with the
-  skew search on the device through ``ops.skew_device.GroupedSkewWorker``
-  when the device is a card);
-- ``TEXT_ALIGNMENT_TPU_RASTER=device``: :func:`..pipeline.device_raster.
-  raster_stream_device`, the raster on the device around the ``cc_clean``
-  and ``cc_table`` kernels, with the OCR stage cutting the strips from the
-  device page (``DevicePageStrips``).
+- ``backend="device"`` (the default, as in the JAX package): the port's
+  ``raster_stream`` running :mod:`..ops.device` on the device page by
+  page;
+- ``backend="hybrid"``: the port's ``raster_stream`` (the native host
+  raster, with the skew search on the device through
+  ``ops.skew_device.GroupedSkewWorker`` when the device is a card);
+- ``backend="hybrid"`` with ``TEXT_ALIGNMENT_TPU_RASTER=device``:
+  :func:`..pipeline.device_raster.raster_stream_device`, the raster on
+  the device around the ``cc_clean`` and ``cc_table`` kernels, with the
+  OCR stage cutting the strips from the device page
+  (``DevicePageStrips``).
 
 With a ``mesh`` (:mod:`.mesh`), the whole batch is sharded over the
 ranks of its ``data`` axis, every rank holding the same folios: each rank
@@ -52,7 +56,7 @@ from ..pipeline.preprocess import (
     raster_stream,
     identify_text_lines,
 )
-from ..pipeline.process import to_JSON_dict
+from ..pipeline.process import BACKENDS, to_JSON_dict
 from ..utils.timing import StageTimer
 
 
@@ -164,7 +168,7 @@ class PipelinedOCRWorker:
 
 
 def process_batch(folios, recognizer, seq_align_params=None,
-                  backend: str = "hybrid", preproc_params=None,
+                  backend: str = "device", preproc_params=None,
                   timer: StageTimer | None = None,
                   existing_ocr: list | None = None,
                   existing_pre: list | None = None,
@@ -179,9 +183,10 @@ def process_batch(folios, recognizer, seq_align_params=None,
     ``recognizer``: a :class:`..models.recognizer.SeqRecognizer` (its own
     device runs the OCR). ``device``: the torch device of the raster's
     device stages and of the NW fill (None: the card; it raises when there
-    is none). ``backend``: "hybrid" (native host raster, NW on the device
-    above ``min_align_device_cells``) or "host" (numpy raster, host NW);
-    the JAX package's all-XLA "device" raster is not ported and raises.
+    is none). ``backend``: "device" (the raster of :mod:`..ops.device` on
+    ``device``), "hybrid" (native host raster), both with NW on the device
+    above ``min_align_device_cells``, or "host" (numpy raster, host NW);
+    another name raises ``ValueError``.
     ``existing_ocr`` optionally injects per-folio CharBox streams,
     skipping the recognizer. ``existing_pre`` injects per-folio (image,
     angle, strips, peaks) tuples, skipping the raster stage.
@@ -198,11 +203,8 @@ def process_batch(folios, recognizer, seq_align_params=None,
     device-page feed are off under a mesh. ``device`` is then this rank's
     device (None: the mesh's). Output is byte-identical to the unsharded
     run."""
-    if backend not in ("host", "hybrid"):
-        raise NotImplementedError(
-            f"backend={backend!r}: the all-XLA raster is not ported; use "
-            "'hybrid' or 'host' (TEXT_ALIGNMENT_TPU_RASTER=device runs the "
-            "raster on the device)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     pin_float32()
     if mesh is not None:
         from .mesh import mesh_device
@@ -245,10 +247,11 @@ def process_batch(folios, recognizer, seq_align_params=None,
 
     def _raster_one(raw_image):
         image, eroded, angle = preprocess_images(
-            np.asarray(raw_image), backend=backend, params=preproc_params)
+            np.asarray(raw_image), backend=backend, params=preproc_params,
+            device=device)
         strips, peaks, _ = identify_text_lines(
             image, eroded, backend=backend, params=preproc_params,
-            verbose=False)
+            verbose=False, device=device)
         return image, angle, strips, peaks
 
     use_device_raster = False
@@ -352,7 +355,7 @@ def process_batch(folios, recognizer, seq_align_params=None,
         pair_idx.append(i)
 
     with timer("align"):
-        if backend == "hybrid":
+        if backend in ("device", "hybrid"):
             aligned = align_pairs(pairs, sc,
                                   min_device_cells=min_align_device_cells,
                                   device=device, mesh=mesh)

@@ -253,7 +253,8 @@ def dryrun_body(n_processes: int) -> None:
     sharded folio batch, and the sharded scoring grid, with meshes over
     all ranks; each result byte-identical to the unsharded run and across
     ranks (the JAX package's ``dryrun_body``; its folio batch runs
-    ``backend="hybrid"``, since the port has no all-XLA raster)."""
+    ``backend="hybrid"``, the native host raster, where the JAX package's
+    runs its default ``"device"``)."""
     import json
 
     from ..align.api import align_grid

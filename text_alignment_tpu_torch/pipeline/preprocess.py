@@ -12,8 +12,11 @@ All engines produce identical pixels/strips:
   ~10 ms, while the equivalent XLA program at page shape is a known
   compile-time pathology on remote-compile TPU runtimes. The FLOP-heavy
   stages (recognizer, NW) still run on TPU; see ``process()``.
-- ``backend="device"``— the JAX package's all-XLA raster; not ported, it
-  raises (the port's device raster is :mod:`.device_raster`).
+- ``backend="device"``— :mod:`..ops.device` on a torch device (the CC
+  kernels of ``csrc/cc_filter.cu`` and torch ops); page tensors stay on
+  the device across the stages, with only the histogram, the projections,
+  the compact CC tables and the bit-packed pages coming back to the host.
+  Its functions take ``device`` (None: the card).
 
 Projection smoothing, peak prominence, and all per-CC list logic are
 host-side float64/python on *all* paths (they are O(H) / O(#CCs)), so every
@@ -95,17 +98,6 @@ def _raster_engine(backend: str):
     return oracle
 
 
-def _device_backend_not_ported():
-    """The JAX package's ``backend="device"`` (the all-XLA pixel-domain
-    raster of ``ops/device.py``) has no counterpart in the port: its
-    device raster is the CUDA CC path of :mod:`.device_raster`, engaged by
-    the batched pipeline (``TEXT_ALIGNMENT_TPU_RASTER=device``)."""
-    raise NotImplementedError(
-        'backend="device" (the all-XLA pixel-domain raster) is not ported; '
-        'use "hybrid" or "host", or the batched pipeline\'s device raster '
-        "(TEXT_ALIGNMENT_TPU_RASTER=device)")
-
-
 def vertically_coincide(hline_position, comp_offset, comp_nrows, collision,
                         collision_scale=COLLISION_STRIP_SCALE):
     """True if any part of the component lies within the strip around the
@@ -123,16 +115,24 @@ def vertically_coincide(hline_position, comp_offset, comp_nrows, collision,
 def preprocess_images(input_image, despeckle_amt: int = DESPECKLE_AMT,
                       filter_runs: int = 1, filter_runs_amt: int = 2,
                       correct_rotation: bool = True, backend: str = "host",
-                      params: PreprocParams | None = None):
+                      params: PreprocParams | None = None, device=None):
     """Binarize + denoise + deskew (textAlignPreprocessing.py:160-195).
 
     Returns (image_bin, image_eroded, angle) as numpy bool arrays.
+    ``device``: the torch device of ``backend="device"`` (None: the card).
     """
     p = params or PreprocParams()
     input_image = np.asarray(input_image)
 
     if backend == "device":
-        _device_backend_not_ported()
+        from ..ops import device as eng
+
+        image_bin, packed_eroded, angle = _preprocess_device(
+            input_image, despeckle_amt, filter_runs, filter_runs_amt,
+            correct_rotation, p, device)
+        image_eroded = eng.unpack_bool(packed_eroded.cpu().numpy(),
+                                       image_bin.shape[1])
+        return image_bin, image_eroded, angle
 
     eng = _raster_engine(backend)
     if hasattr(eng, "preprocess_page"):
@@ -156,6 +156,35 @@ def preprocess_images(input_image, despeckle_amt: int = DESPECKLE_AMT,
         eroded = eng.filter_short_runs(eroded, filter_runs_amt, "black")
         eroded = eng.filter_narrow_runs(eroded, filter_runs_amt, "black")
     return img, eroded, angle
+
+
+def _preprocess_device(input_image, despeckle_amt, filter_runs,
+                       filter_runs_amt, correct_rotation, p, device):
+    """:func:`preprocess_images` on ``backend="device"``: (image_bin numpy,
+    the bit-packed eroded page still on the device, angle)."""
+    from ..ops import device as eng
+    from ..ops import fixedpoint as fxp
+
+    # stage 0: greyscale + histogram on the device; Otsu on the host
+    grey = eng.to_greyscale(input_image, device)
+    thresh = eng._otsu_from_hist(
+        eng.grey_histogram(grey, grey.device).cpu().numpy())
+
+    # stage 1: binarize + despeckle x2 + tall/big-CC removal
+    img = eng.preproc_stage1(grey, thresh, despeckle_amt, p.sat_area_thresh,
+                             sat_by_area=p.sat_filter_area,
+                             device=grey.device)
+    angle = eng.rotation_angle_projections(img, -6, 6, img.device)
+
+    H, W = int(img.shape[0]), int(img.shape[1])
+    if correct_rotation:
+        H2, W2 = fxp.rotated_canvas(H, W, angle)
+        cfix, sfix = fxp.rotation_coeffs(angle)
+    else:
+        H2, W2, cfix, sfix = H, W, fxp.SCALE, 0
+    packed_bin, packed_eroded, _proj = eng.rotate_erode_project(
+        img, cfix, sfix, H2, W2, filter_runs, filter_runs_amt, img.device)
+    return eng.unpack_bool(packed_bin.cpu().numpy(), W2), packed_eroded, angle
 
 
 def preprocess_stream(images, backend: str = "host",
@@ -194,7 +223,7 @@ def preprocess_stream(images, backend: str = "host",
                 raw, despeckle_amt=despeckle_amt, filter_runs=filter_runs,
                 filter_runs_amt=filter_runs_amt,
                 correct_rotation=correct_rotation, backend=backend,
-                params=params,
+                params=params, device=device,
             )
         return
 
@@ -264,8 +293,9 @@ def raster_stream(images, backend: str = "host",
     per folio: the rotated binarized page as (H2, ceil(W2/32)) int32
     little-endian bit rows (the packed-page OCR feed's upload; packed
     from the rotated run list on the native path, np.packbits
-    otherwise). ``device``: the torch device of the skew search (None: the
-    card)."""
+    otherwise). ``device``: the torch device of the skew search and of
+    ``backend="device"``, which runs :func:`preprocess_images` and
+    :func:`identify_text_lines` on it page by page (None: the card)."""
     images = list(images)
     p = params or PreprocParams()
     fused = False
@@ -274,13 +304,23 @@ def raster_stream(images, backend: str = "host",
 
         fused = hn.available()
     if not fused:
-        stream = preprocess_stream(images, backend=backend,
-                                   despeckle_amt=despeckle_amt, params=p,
-                                   skew=skew, depth=depth, device=device)
+        if backend == "device":
+            # the eroded page stays on the device for identify_text_lines
+            from ..ops import cc
+
+            stream = ((b, cc.unpack_bits(e, b.shape[1]), a)
+                      for b, e, a in (_preprocess_device(
+                          raw, despeckle_amt, 1, 2, True, p, device)
+                          for raw in images))
+        else:
+            stream = preprocess_stream(images, backend=backend,
+                                       despeckle_amt=despeckle_amt,
+                                       params=p, skew=skew, depth=depth,
+                                       device=device)
         for image_bin, image_eroded, angle in stream:
             strips, peaks, _ = identify_text_lines(
                 image_bin, image_eroded, backend=backend, params=p,
-                verbose=False)
+                verbose=False, device=device)
             if want_packed:
                 yield image_bin, angle, strips, peaks, _pack_page_np(
                     image_bin)
@@ -350,10 +390,21 @@ def raster_stream(images, backend: str = "host",
         worker.finish()
 
 
-def _cc_table(img, backend):
+def _device_table(table, count) -> np.ndarray:
+    """The first ``count`` rows of a device CC table as host int64; more
+    components than the table holds raise, as in the JAX package."""
+    if count > table.shape[0]:
+        raise RuntimeError(
+            f"page has {count} CCs > MAX_CCS={table.shape[0]}")
+    return table[:count].cpu().numpy().astype(np.int64)
+
+
+def _cc_table(img, backend, device=None):
     """(uly, lry, ulx, lrx, area) int rows for every CC, scan order."""
     if backend == "device":
-        _device_backend_not_ported()
+        from ..ops import device as eng
+
+        return _device_table(*eng.cc_stats_compact(img, device=device))
     eng = _raster_engine(backend)
     if eng is not oracle:
         return eng.cc_stats(np.asarray(img))
@@ -362,21 +413,29 @@ def _cc_table(img, backend):
 
 
 def identify_text_lines(image_bin, image_eroded, backend: str = "host",
-                        params: PreprocParams | None = None, verbose: bool = False):
+                        params: PreprocParams | None = None,
+                        verbose: bool = False, device=None):
     """Find text lines (textAlignPreprocessing.py:198-285).
 
     Returns (line_strips, peak_locations, smoothed_projection).
+    ``device``: the torch device of ``backend="device"`` (None: the card).
     """
     p = params or PreprocParams()
 
     if backend == "device":
-        _device_backend_not_ported()
-    project = _raster_engine(backend).projection_rows(
-        np.asarray(image_eroded)
-    )
+        from ..ops import device as eng
+
+        # one upload; a page already on the device stays where it is
+        image_eroded = eng.on_device(image_eroded, device)
+        project = eng.projection_rows(image_eroded,
+                                      image_eroded.device).cpu().numpy()
+    else:
+        project = _raster_engine(backend).projection_rows(
+            np.asarray(image_eroded)
+        )
 
     def table_fn(sep_rows):
-        return _sep_masked_cc_table(image_eroded, sep_rows, backend)
+        return _sep_masked_cc_table(image_eroded, sep_rows, backend, device)
 
     return _lines_from_projection(image_bin, project, table_fn, p, verbose)
 
@@ -403,11 +462,18 @@ def identify_text_lines_runs(image_bin, eroded_runs, n_eruns, proj,
     return _lines_from_projection(image_bin, proj, table_fn, p, verbose)
 
 
-def _sep_masked_cc_table(image_eroded, sep_rows, backend):
+def _sep_masked_cc_table(image_eroded, sep_rows, backend, device=None):
     """CC table of the eroded page with 2-px separator rows erased
     (textAlignPreprocessing.py:217-235), per backend."""
     if backend == "device":
-        _device_backend_not_ported()
+        from ..ops import device as eng
+
+        H = int(image_eroded.shape[0])
+        mask = np.zeros(H, dtype=bool)
+        for idx in sep_rows:
+            mask[idx : idx + 2] = True
+        return _device_table(*eng.erase_and_ccstats(
+            image_eroded, mask, device=device))
     eng = _raster_engine(backend)
     if hasattr(eng, "cc_stats_masked"):
         # native path: masked rows are treated as white during run

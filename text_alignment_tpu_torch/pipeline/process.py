@@ -8,17 +8,19 @@ the canonical output, including the reference's 75th-percentile-as-"median"
 line spacing quirk.
 
 Stages:
-- raster and line segmentation: the port's copy of the JAX package's host
-  code (:mod:`.preprocess`: the native C++ engine on ``backend="hybrid"``,
-  the numpy oracle on "host");
+- raster and line segmentation: :mod:`.preprocess`, the port's copy of the
+  JAX package's code: the native C++ engine on ``backend="hybrid"``, the
+  numpy oracle on "host", and on "device" :mod:`..ops.device` on
+  ``device`` (the CC kernels and torch ops);
 - OCR: the port's :class:`..models.recognizer.SeqRecognizer` on ``device``,
   normalizing lines on the device when that device is a CUDA card;
 - NW alignment: the port's ``perform_alignment``. ``backend="hybrid"``
   routes the pair as the JAX package's hybrid does ("auto"): to the CUDA
   fill and traceback kernels on ``device`` when that device is a card and
   the pair has at least ``auto_device_min_cells()`` cells, to the host fill
-  otherwise (a chant page, or any page on a CPU device); ``"host"`` always
-  takes the host fill;
+  otherwise (a chant page, or any page on a CPU device); ``"device"``
+  always takes the device fill and traceback on ``device`` (their plain
+  versions on a CPU device); ``"host"`` always takes the host fill;
 - assembly: the port's copy of the JAX package's host code
   (:mod:`.assemble`).
 
@@ -26,10 +28,6 @@ Stages:
 (:mod:`..utils.cache`), as the JAX package does, in a namespace of the
 port's own: an entry the JAX package wrote into the same directory is a
 miss here and is never unpickled.
-
-``backend="device"`` (the all-XLA raster) is not ported and raises; the
-port's device raster runs in the batched pipeline
-(:func:`..parallel.batch.process_batch`).
 """
 
 from __future__ import annotations
@@ -66,14 +64,18 @@ MEDIAN_LINE_MULT = 2  # threaded but unused, as in the reference
 CACHE_NAMESPACE = "text_alignment_tpu_torch"
 
 
+BACKENDS = ("host", "hybrid", "device")
+
+
 def _normalizes_on_device(ocropus_model, backend, device) -> bool:
     """Whether the OCR stage normalizes lines on the device. A model path
-    loaded here does so on a card with ``backend="hybrid"``: the whole OCR
+    loaded here does so on a card with ``backend="hybrid"`` or
+    ``"device"``: the whole OCR
     stage is then one device program per batch, while host/parity runs and
     CPU devices keep the scipy normalizer, as the reference does on a
     CPU-only runtime. A ready recognizer keeps its own setting."""
     if isinstance(ocropus_model, str):
-        return backend == "hybrid" and device.type == "cuda"
+        return backend in ("hybrid", "device") and device.type == "cuda"
     return bool(getattr(ocropus_model, "normalize_on_device", False))
 
 
@@ -134,11 +136,13 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
 
     raw_image: (H, W[, C]) uint8/bool numpy array. ``ocropus_model``: a
     ``.pyrnn(.gz)`` path (loaded onto ``device``) or a ready
-    ``SeqRecognizer``. ``device``: torch device of the OCR stage and of the
-    device NW fill (None: the card; it raises when there is none). ``backend``:
-    "hybrid" (native C++ raster, NW routed "auto") or "host" (numpy
-    raster, host NW fill). ``strict=False`` fixes the documented
-    reference defects (stage-1 CC area filter, NW boundary extends).
+    ``SeqRecognizer``. ``device``: torch device of the OCR stage, of the
+    device raster and of the device NW fill (None: the card; it raises
+    when there is none). ``backend``: "hybrid" (native C++ raster, NW
+    routed "auto"), "device" (the raster of :mod:`..ops.device` and NW on
+    ``device``) or "host" (numpy raster, host NW fill); another name
+    raises ``ValueError``. ``strict=False`` fixes the documented reference
+    defects (stage-1 CC area filter, NW boundary extends).
     ``median_line_mult``, ``wkdir_name`` and ``parallel`` are accepted and
     inert, as in the reference. ``stage_cache``: a
     :class:`..utils.cache.StageCache` (or a directory path) that memoizes
@@ -146,10 +150,8 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     names the model, the backend, the normalizer route and the device type.
     """
     del wkdir_name, parallel, median_line_mult
-    if backend not in ("host", "hybrid"):
-        raise NotImplementedError(
-            f"backend={backend!r}: the all-XLA raster is not ported; use "
-            "'hybrid' or 'host' (the device raster runs in process_batch)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     pin_float32()
     device = resolve_device(device)
     raw_image = np.asarray(raw_image)
@@ -171,7 +173,8 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         with timer("preprocess"):
             def _run_preproc():
                 return preprocess_images(raw_image, backend=backend,
-                                         params=preproc_params)
+                                         params=preproc_params,
+                                         device=device)
 
             if stage_cache is not None:
                 image, eroded, angle = stage_cache.cached(
@@ -187,7 +190,7 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         with timer("identify_lines"):
             cc_strips, lines_peak_locs, _ = identify_text_lines(
                 image, eroded, backend=backend, verbose=verbose,
-                params=preproc_params)
+                params=preproc_params, device=device)
 
     # -- OCR --
     all_chars = []
@@ -258,7 +261,7 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
             tra_align, ocr_align = perform_alignment(
                 list(transcript), list(ocr), scoring_system=seq_align_params,
                 verbose=False, strict=strict, device=device,
-                backend="auto" if backend == "hybrid" else "host")
+                backend={"hybrid": "auto"}.get(backend, backend))
     tra_align = "".join(tra_align)
     ocr_align = "".join(ocr_align)
 

@@ -12,9 +12,8 @@ would TypeError (textAlignment.py:56, SURVEY.md §2.14). This wrapper is the
 corrected behavior: the model path comes from job settings.
 
 The port's copy of ``text_alignment_tpu/rodan_job.py``: the task body runs
-the port's ``process()`` on ``device`` (None: the card), on the production
-backend ``"hybrid"`` (the JAX package's default, the all-XLA ``"device"``
-raster, is not ported).
+the port's ``process()`` on ``device`` (None: the card), on the JAX
+package's default backend ``"device"``.
 """
 
 from __future__ import annotations
@@ -98,7 +97,7 @@ def load_text_layer(path: str) -> np.ndarray:
 
 
 def run_task(inputs: dict, settings: dict, outputs: dict,
-             backend: str = "hybrid", device=None) -> bool:
+             backend: str = "device", device=None) -> bool:
     """The task body (textAlignment.py:51-63, corrected)."""
     transcript = read_file(inputs["Transcript"][0]["resource_path"])
     raw_image = load_text_layer(inputs["Text Layer"][0]["resource_path"])

@@ -36,15 +36,17 @@ def clean_image(input_image, despeckle_amt: int = 25, filter_runs: int = 1,
     return img, angle
 
 
-def union_line_strips(raw_image, backend: str = "host", preproc_params=None):
+def union_line_strips(raw_image, backend: str = "host", preproc_params=None,
+                      device=None):
     """Union detected line strips onto a blank page — the 'cleaned_*.png'
-    output of clean_images_for_training.py:43-56."""
+    output of clean_images_for_training.py:43-56. ``device``: the torch
+    device of ``backend="device"`` (None: the card)."""
     image, eroded, _ = preprocess_images(
         np.asarray(raw_image), despeckle_amt=20, filter_runs=0,
-        backend=backend, params=preproc_params,
+        backend=backend, params=preproc_params, device=device,
     )
     strips, _, _ = identify_text_lines(image, eroded, backend=backend,
-                                       params=preproc_params)
+                                       params=preproc_params, device=device)
     out = np.zeros_like(image)
     for s in strips:
         h, w = s.img.shape

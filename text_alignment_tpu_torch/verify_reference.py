@@ -244,7 +244,8 @@ def verify(assets: str, manuscript: str | None = None, folios=None,
             from .pipeline.preprocess import preprocess_images
 
             eval_img, _, _ = preprocess_images(
-                raw, correct_rotation=False, backend=backend)
+                raw, correct_rotation=False, backend=backend,
+                device=device)
             fr.bbox_iou, fr.ink_iou = evaluate_alignment(
                 parse_gt_xml(gt_path), ours["syl_boxes"], eval_img)
         if verbose:
