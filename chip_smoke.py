@@ -33,8 +33,11 @@ Phases, each printing one line (any failure exits non-zero):
      pairs, and there the ms at forced S = 64 to 1024 lanes and 1 to 4
      lanes a thread; the chain floor; perform_alignment(backend="device") against
      backend="host" at 16383^2 and at 26,000 x 2,000 (past the old
-     one-block cap of 25,600 lanes; aligned lists equal), and the
-     device/host times of perform_alignment from 128^2 to 2048^2;
+     one-block cap of 25,600 lanes; aligned lists equal), the
+     device/host times of perform_alignment from 128^2 to 2048^2, and
+     perform_alignment(backend="reference") (the literal fill, on the
+     host) equal to "host" and "device" at 20 x 24, 64 x 60 and 150 x 140
+     under the default scoring and a callable, with its ms;
   8. nw_traceback: one walk step in shared memory (ta_nw_tb_chase); the
      kernel against its plain version (ops[:k], k, xpt, ypt identical) on
      the phase-7 4096^2 pointers, the 8191^2 and 16383^2 pairs, one 2400^2
@@ -734,7 +737,7 @@ def phase_nw_fill(dev):
     at the bench's 8191² and 16383² pairs, and there at forced S = 64 to
     1024 and 1 to 4 lanes a thread; perform_alignment on the card against the host fill at
     16383² and at 26,000 x 2,000; the host/device crossover of
-    perform_alignment."""
+    perform_alignment; the reference backend (:func:`nw_reference_backend`)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = max_sm_mhz()
     t, o = seeded_pair(4095, 4095, 7)
@@ -765,12 +768,12 @@ def phase_nw_fill(dev):
               f" kernel {f_ms:.3f} ms = {cells / f_ms / 1e6:.4f} GCUPS (cells "
               f"Nt*No with sentinels); chain floor "
               f"{chain_floor_ms(2 * Ln - 1, mhz):.4f} ms")
-        sweep = []
+        sweep = []  # a report: one timed launch a setting (phase time)
         for seg in (64, 128, 256, 512, 1024):
             for run in (1, 2, 4):
                 if seg // run >= 32:
                     s_ms = cuda_ms(lambda: nwk.fill_cuda(
-                        ta, ob, row, seg=seg, run=run), 3)
+                        ta, ob, row, seg=seg, run=run), 1)
                     sweep.append(f"S={seg} run={run} ({seg // run} threads) "
                                  f"{s_ms:.3f}")
         print(f"nw_fill: {n}^2 forced segments, ms: " + "; ".join(sweep))
@@ -793,8 +796,44 @@ def phase_nw_fill(dev):
         h_ms = min(wall_ms(lambda: perform_alignment(
             a, b, backend="host"))[1] for _ in range(3))
         print(f"nw crossover {n}^2: device {d_ms:.3f} ms host {h_ms:.3f} ms")
+    nw_reference_backend(dev)
     return ({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
              **fill_bound, "library_ms": None}, got, nts, nos)
+
+
+def reference_score(a, b):
+    """A callable scoring of phase 7's reference check: the device takes
+    it through the plain wavefront, the host through the numpy fill."""
+    return 6 if a == b else (-1 if " " in (a, b) else -3)
+
+
+def nw_reference_backend(dev):
+    """perform_alignment(backend="reference") (the literal O(N*M) fill,
+    on the host) against "host" and "device" on the card, at three seeded
+    pairs under the default scoring and a callable; the reference's ms
+    (host clock, one call) under each."""
+    sizes = ((20, 24), (64, 60), (150, 140))
+    systems = {"default": None,
+               "callable": [reference_score, -7, -5, -2, -1]}
+    same, times = True, {name: [] for name in systems}
+    wall0 = time.perf_counter()
+    for n, m in sizes:
+        a, b = seeded_pair(n, m, n * m)
+        for name, system in systems.items():
+            t0 = time.perf_counter()
+            ref = perform_alignment(a, b, system, backend="reference")
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            same &= (ref == perform_alignment(a, b, system, backend="host")
+                     == perform_alignment(a, b, system, backend="device",
+                                          device=dev))
+    print(f"nw reference backend at " + ", ".join(
+        f"{n} x {m}" for n, m in sizes) + ": aligned lists equal to host "
+        f"and device (card) under both scorings {same}; reference ms "
+        + "; ".join(f"{name} " + " ".join(f"{t:.2f}" for t in ts)
+                    for name, ts in times.items())
+        + f"; the check's wall {(time.perf_counter() - wall0) * 1e3:.1f} ms")
+    check(same, "perform_alignment(backend=\"reference\") differs from "
+          "the host or the card")
 
 
 def tb_step_ns(dev, blocks: int = 65536) -> float:

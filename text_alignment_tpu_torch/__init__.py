@@ -56,3 +56,8 @@ package. Its entry points run on the card unless the caller names the CPU
 """
 
 __version__ = "0.1.0"
+
+from .charbox import CharBox
+from .textio import read_file
+
+__all__ = ["CharBox", "read_file", "__version__"]

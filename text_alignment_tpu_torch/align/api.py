@@ -16,6 +16,10 @@ Backends:
 - ``"auto"``: the device when it is a CUDA card and the pair has at least
   ``auto_device_min_cells()`` cells (``len(t) * len(o)``, sentinels
   included), the host otherwise.
+- ``"reference"``: the literal O(N*M) port of the reference's fill
+  (:func:`.nw_host.fill_reference_slow`) and the dense traceback, on the
+  host; the oracle the other backends are held to. ``"auto"`` never
+  picks it.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import nw_torch
-from .nw_host import fill_host
+from .nw_host import fill_host, fill_reference_slow
 from .scoring import resolve_scoring
 from .traceback import DensePtrView, traceback
 
@@ -102,6 +106,9 @@ def perform_alignment(transcript, ocr, scoring_system=None, verbose=False,
             transcript, ocr, sc, resolve_device(device))
         tra_align, ocr_align = nw_torch.replay_ops(transcript, ocr, ops,
                                                    count, xpt, ypt)
+    elif backend == "reference":
+        ptrs = DensePtrView(*fill_reference_slow(transcript, ocr, sc))
+        tra_align, ocr_align = traceback(transcript, ocr, ptrs)
     else:
         raise ValueError("unknown backend {!r}".format(backend))
 

@@ -2,6 +2,21 @@
 raster and line segmentation (``preprocess``), the device raster stream
 (``device_raster``), assembly (``assemble``) and overlays (``render``)."""
 
+from .preprocess import (
+    preprocess_images,
+    identify_text_lines,
+    LineStrip,
+    PreprocParams,
+)
 from .process import process, to_JSON_dict
+from .assemble import rotate_bbox
 
-__all__ = ["process", "to_JSON_dict"]
+__all__ = [
+    "preprocess_images",
+    "identify_text_lines",
+    "LineStrip",
+    "PreprocParams",
+    "process",
+    "to_JSON_dict",
+    "rotate_bbox",
+]
