@@ -166,8 +166,16 @@ Phases, each printing one line (any failure exits non-zero):
      backend on the folio gives process()'s JSON; the 499 x 40 px
      serpentine is one component on the card (the JAX device labeling
      counts 59).
-The phases run one at a time: 1-17, 21, then 18-20. Each group of phases
-prints its wall and the script's so far ("wall:").
+  22. the port's bench, python -m text_alignment_tpu_torch.bench --out
+     DIR, in a child process on the card (BENCH_ARGS): it exits 0, its last
+     line is the folios/sec headline, DIR/bench_last.json holds the 13
+     metrics, each finite and positive, with the card's line, its batch
+     guard passed (the batched JSON equals the sequential JSON folio for
+     folio), and the run launched lstm_scan, lineest_tail, nw_fill,
+     nw_fill_batched, nw_traceback and cc_clean; the 13 metrics on one
+     line beside the card's name and power limit, and the phase's wall.
+The phases run one at a time: 1-17, 21, 22, then 18-20. Each group of
+phases prints its wall and the script's so far ("wall:").
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
@@ -2621,6 +2629,57 @@ class Walls:
         self.last = now
 
 
+BENCH_ARGS = ()  # phase 22's bench arguments beyond --out (its defaults)
+BENCH_KERNELS = ("lstm_scan", "lineest_tail", "nw_fill", "nw_fill_batched",
+                 "nw_traceback", "cc_clean")
+BENCH_GUARD = "# batch guard: the batched JSON equals the sequential JSON"
+
+
+def phase_bench(card):
+    """Phase 22: the port's bench in a child process on the card, checked
+    as its docstring and the script's say (a failure is not caught)."""
+    from text_alignment_tpu_torch.bench import HIGHER_IS_BETTER
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        child = subprocess.run(
+            [sys.executable, "-m", "text_alignment_tpu_torch.bench", "--out",
+             out, *BENCH_ARGS], capture_output=True, text=True, timeout=600,
+            cwd=root)
+        check(child.returncode == 0,
+              f"the bench failed ({child.returncode}): "
+              f"{child.stderr[-3000:]}")
+        head = json.loads(child.stdout.strip().splitlines()[-1])
+        with open(os.path.join(out, "bench_last.json")) as f:
+            last = json.load(f)
+    check(head["metric"] == "folios/sec" and head["unit"] == "folios/sec"
+          and head["value"] > 0 and head["vs_baseline"] > 0,
+          f"bad bench headline {head}")
+    bad = [k for k in HIGHER_IS_BETTER
+           if not (np.isfinite(last.get(k, np.nan)) and last[k] > 0)]
+    check(len(HIGHER_IS_BETTER) == 13 and not bad,
+          f"bench_last.json lacks or has bad metrics {bad}")
+    check(last.get("card") == card, f"bench card {last.get('card')!r}")
+    check(round(last["folios_per_sec"], 3) == head["value"],
+          f"headline {head} against {last['folios_per_sec']}")
+    check(BENCH_GUARD in child.stderr, "the bench's batch guard did not pass")
+    lines = [ln for ln in child.stderr.splitlines()
+             if ln.startswith("# kernel launches: ")]
+    check(len(lines) == 1, "the bench printed no kernel launches")
+    launched = json.loads(lines[0].split(": ", 1)[1])
+    check(all(launched[k] >= 1 for k in BENCH_KERNELS),
+          f"the bench launched {launched}")
+    for ln in child.stderr.splitlines():
+        if ln.startswith(("# device[", "# cpu baseline", "# regression",
+                          "# REGRESSIONS")):
+            print(f"bench: {ln[2:]}")
+    print(f"bench: {card}: " + ", ".join(
+        f"{k} {last[k]:.6g}" for k in HIGHER_IS_BETTER))
+    print(f"bench: headline {json.dumps(head)}; launches {launched}; phase "
+          f"22 {time.perf_counter() - t0:.1f} s {list(BENCH_ARGS)}")
+
+
 def main(argv) -> int:
     walls = Walls()
     card = phase_card()
@@ -2691,6 +2750,8 @@ def main(argv) -> int:
     phase_device_backend(dev, card, path, page, batch_pages, batch_seq,
                          batch_ms)
     walls.lap("21")
+    phase_bench(card)
+    walls.lap("22")
     phase_train(dev)
     walls.lap("18")
     phase_mesh(dev, card, path, page, batch_pages, batch_seq, batch_ms,

@@ -1,8 +1,8 @@
 """The port needs no JAX and no file of the JAX package: in a fresh
 interpreter whose import system refuses ``jax`` and ``jaxlib``,
-text_alignment_tpu_torch imports, process() runs a small synthetic page end
-to end on the CPU, from a .pyrnn.gz model and through the device
-normalizer's plain versions (the full-chain route,
+text_alignment_tpu_torch and its bench import, process() runs a small
+synthetic page end to end on the CPU, from a .pyrnn.gz model and through
+the device normalizer's plain versions (the full-chain route,
 ``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch runs it with the device
 raster (the CC kernels' plain versions), process(backend="device")
 gives the hybrid JSON (ops/device.py's plain versions), the NW device
@@ -44,7 +44,7 @@ _SCRIPT = textwrap.dedent("""
     os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
 
     import text_alignment_tpu_torch
-    from text_alignment_tpu_torch import cli, evaluate  # noqa: F401
+    from text_alignment_tpu_torch import bench, cli, evaluate  # noqa: F401
     from text_alignment_tpu_torch.align import nw_kernel  # noqa: F401
     from text_alignment_tpu_torch.align import align_grid, perform_alignment
     from text_alignment_tpu_torch.models.codec import Codec
