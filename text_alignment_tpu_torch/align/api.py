@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import span
 from . import nw_torch
 from .nw_host import fill_host, fill_reference_slow
 from .scoring import resolve_scoring
@@ -104,8 +105,9 @@ def perform_alignment(transcript, ocr, scoring_system=None, verbose=False,
     elif backend == "device":
         ops, count, xpt, ypt = _device_align_ops(sc)(
             transcript, ocr, sc, resolve_device(device))
-        tra_align, ocr_align = nw_torch.replay_ops(transcript, ocr, ops,
-                                                   count, xpt, ypt)
+        with span("ta.nw.replay"):
+            tra_align, ocr_align = nw_torch.replay_ops(transcript, ocr, ops,
+                                                       count, xpt, ypt)
     elif backend == "reference":
         ptrs = DensePtrView(*fill_reference_slow(transcript, ocr, sc))
         tra_align, ocr_align = traceback(transcript, ocr, ptrs)

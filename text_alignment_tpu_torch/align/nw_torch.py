@@ -9,6 +9,13 @@ device, where the JAX package also leaves its Pallas kernel for the XLA
 scan. The route depends on the scoring form alone. Every path ends in the
 pointer walk of :func:`.nw_kernel.traceback_batched`, one copy of the
 (ops, k, xpt, ypt) wire to the host, and :func:`replay_ops`.
+
+Under a running ``torch.profiler`` each entry point opens a span of its
+name (``ta.nw.align_grid``, ``ta.nw.align_pairs``, ``ta.nw.align_ops``)
+and, inside it, one span a stage: ``ta.nw.encode`` (ids, buckets, scoring
+rows, lane layout, uploads), ``ta.nw.fill`` and ``ta.nw.walk`` (the host
+side of each launch), ``ta.nw.wire`` (the host waiting for the card's
+wire) and ``ta.nw.replay`` (every row's replay, one span a call).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from . import nw_kernel
 from .nw_host import fill_host
 from .scoring import BOUNDARY_GAP_EXTEND
@@ -166,14 +174,17 @@ def unwire(wire):
 
 def _walk_wire(packed, nts, nos, device):
     """Traceback of B filled pairs: the (B, 3 + P) wire, on ``device``."""
-    nts = torch.as_tensor(np.asarray(nts, np.int32)).to(device)
-    nos = torch.as_tensor(np.asarray(nos, np.int32)).to(device)
-    return nw_kernel.traceback_batched(packed, nts, nos)
+    with span("ta.nw.walk"):
+        nts = torch.as_tensor(np.asarray(nts, np.int32)).to(device)
+        nos = torch.as_tensor(np.asarray(nos, np.int32)).to(device)
+        return nw_kernel.traceback_batched(packed, nts, nos)
 
 
 def _walk(packed, nts, nos, device):
     """Traceback of B filled pairs and one copy of the wire to the host."""
-    return unwire(_walk_wire(packed, nts, nos, device).cpu().numpy())
+    wire = _walk_wire(packed, nts, nos, device)
+    with span("ta.nw.wire"):
+        return unwire(wire.cpu().numpy())
 
 
 def _resolve(device, mesh):
@@ -203,37 +214,46 @@ def _all_wires(wires, n_rows: int, mesh):
     """The host wires of every row on every rank: this rank's device wires
     joined and, under a mesh, all-gathered over its ``data`` axis (on the
     card under NCCL), padded rows dropped; one copy to the host."""
-    wire = torch.cat(wires)
-    if mesh is None:
-        return wire.cpu().numpy()
-    from ..parallel.multihost import fetch
+    with span("ta.nw.wire"):
+        wire = torch.cat(wires)
+        if mesh is None:
+            return wire.cpu().numpy()
+        from ..parallel.multihost import fetch
 
-    return fetch(wire, mesh)[:n_rows]
+        return fetch(wire, mesh)[:n_rows]
 
 
 def align_ops(transcript, ocr, sc, device):
     """One pair (sentinels included) through the fill kernel and the
     traceback kernel: (ops, k, xpt, ypt) on the host. Integer
     match/mismatch scoring only."""
-    t, o, nts, nos = lane_batch([(transcript, ocr)])
-    params = torch.from_numpy(kernel_params(sc)[None]).to(device)
-    packed = nw_kernel.fill(torch.from_numpy(t).to(device),
-                            torch.from_numpy(o).to(device), params)
-    ops, k, xpt, ypt = _walk(packed, nts, nos, device)
+    with span("ta.nw.align_ops"):
+        with span("ta.nw.encode"):
+            t, o, nts, nos = lane_batch([(transcript, ocr)])
+            params = torch.from_numpy(kernel_params(sc)[None]).to(device)
+            t = torch.from_numpy(t).to(device)
+            o = torch.from_numpy(o).to(device)
+        with span("ta.nw.fill"):
+            packed = nw_kernel.fill(t, o, params)
+        ops, k, xpt, ypt = _walk(packed, nts, nos, device)
     return ops[0], int(k[0]), int(xpt[0]), int(ypt[0])
 
 
 def align_ops_plain(transcript, ocr, sc, device):
     """One pair through the plain torch wavefront on ``device`` (callable
     or non-integer scoring), then the traceback kernel."""
-    t_ids, o_ids, row, S = _encode(transcript, ocr, sc)
-    L, NoP = _bucket(len(t_ids)), _bucket(len(o_ids))
-    t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
-    o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
-    params = torch.from_numpy(row[None]).to(device)
-    S = None if S is None else torch.from_numpy(S).to(device)
-    packed = nw_kernel.fill_reference(t, o, params, S)
-    ops, k, xpt, ypt = _walk(packed, [len(t_ids)], [len(o_ids)], device)
+    with span("ta.nw.align_ops"):
+        with span("ta.nw.encode"):
+            t_ids, o_ids, row, S = _encode(transcript, ocr, sc)
+            L, NoP = _bucket(len(t_ids)), _bucket(len(o_ids))
+            t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
+            o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
+            params = torch.from_numpy(row[None]).to(device)
+            S = None if S is None else torch.from_numpy(S).to(device)
+        with span("ta.nw.fill"):
+            packed = nw_kernel.fill_reference(t, o, params, S)
+        ops, k, xpt, ypt = _walk(packed, [len(t_ids)], [len(o_ids)],
+                                 device)
     return ops[0], int(k[0]), int(xpt[0]), int(ypt[0])
 
 
@@ -272,35 +292,45 @@ def align_pairs(pairs, sc, min_device_cells: int | None = None,
     device = _resolve(device, mesh)
     min_cells = (auto_device_min_cells() if min_device_cells is None
                  else min_device_cells)
-    results = [None] * len(pairs)
-    groups: dict[tuple[int, int], list[int]] = {}
-    prepared = []
-    for idx, (t, o) in enumerate(pairs):
-        t, o = list(t) + [" "], list(o) + [" "]
-        prepared.append((t, o))
-        if len(t) * len(o) < min_cells:
-            results[idx] = traceback(t, o, DensePtrView(*fill_host(t, o, sc)))
-        else:
-            groups.setdefault((_bucket(len(t)), _bucket(len(o))),
-                              []).append(idx)
+    with span("ta.nw.align_pairs"):
+        results = [None] * len(pairs)
+        groups: dict[tuple[int, int], list[int]] = {}
+        prepared = []
+        for idx, (t, o) in enumerate(pairs):
+            t, o = list(t) + [" "], list(o) + [" "]
+            prepared.append((t, o))
+            if len(t) * len(o) < min_cells:
+                results[idx] = traceback(t, o,
+                                         DensePtrView(*fill_host(t, o, sc)))
+            else:
+                groups.setdefault((_bucket(len(t)), _bucket(len(o))),
+                                  []).append(idx)
 
-    params = torch.from_numpy(kernel_params(sc)[None]).to(device)
-    for (L, NoP), members in sorted(groups.items()):
-        step = _per_launch(L, NoP)
-        mine = _rank_rows(np.asarray(members), mesh)
-        wires = []
-        for c0 in range(0, len(mine), step):
-            t, o, nts, nos = lane_batch([prepared[i]
-                                         for i in mine[c0:c0 + step]])
-            packed = nw_kernel.fill_batched(torch.from_numpy(t).to(device),
-                                            torch.from_numpy(o).to(device),
-                                            params, nts, nos)
-            wires.append(_walk_wire(packed, nts, nos, device))
-            del packed
-        ops, k, xpt, ypt = unwire(_all_wires(wires, len(members), mesh))
-        for bi, i in enumerate(members):
-            results[i] = replay_ops(*prepared[i], ops[bi], int(k[bi]),
-                                    int(xpt[bi]), int(ypt[bi]))
+        with span("ta.nw.encode"):
+            params = torch.from_numpy(kernel_params(sc)[None]).to(device)
+        wired = []
+        for (L, NoP), members in sorted(groups.items()):
+            step = _per_launch(L, NoP)
+            mine = _rank_rows(np.asarray(members), mesh)
+            wires = []
+            for c0 in range(0, len(mine), step):
+                with span("ta.nw.encode"):
+                    t, o, nts, nos = lane_batch([prepared[i]
+                                                 for i in mine[c0:c0 + step]])
+                    t = torch.from_numpy(t).to(device)
+                    o = torch.from_numpy(o).to(device)
+                with span("ta.nw.fill"):
+                    packed = nw_kernel.fill_batched(t, o, params, nts, nos)
+                wires.append(_walk_wire(packed, nts, nos, device))
+                del packed
+            wired.append((members,
+                          unwire(_all_wires(wires, len(members), mesh))))
+        with span("ta.nw.replay"):
+            for members, (ops, k, xpt, ypt) in wired:
+                for bi, i in enumerate(members):
+                    results[i] = replay_ops(*prepared[i], ops[bi],
+                                            int(k[bi]), int(xpt[bi]),
+                                            int(ypt[bi]))
     return results
 
 
@@ -319,29 +349,34 @@ def align_grid(transcript, ocr, params_list, device=None, mesh=None):
     results thrown away), every rank fills and walks its share, and the
     wires are gathered, so every rank returns the whole list."""
     device = _resolve(device, mesh)
-    transcript = list(transcript) + [" "]
-    ocr = list(ocr) + [" "]
-    t_ids, o_ids = _token_ids(transcript, ocr)
-    Nt, No = len(t_ids), len(o_ids)
-    L, NoP = _bucket(Nt), _bucket(No)
-    p6 = np.asarray(params_list, np.int64)
-    if p6.ndim != 2 or p6.shape[1] != 6:
-        raise ValueError(f"params_list must be rows of 6 integers, got shape "
-                         f"{p6.shape}")
-    rows = np.concatenate(
-        [p6, np.full((len(p6), 2), BOUNDARY_GAP_EXTEND, np.int64)],
-        axis=1).astype(np.int32)
-    mine = _rank_rows(rows, mesh)
-    step = grid_step(len(mine), L, NoP)
-    t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
-    o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
-    wires = []
-    for c0 in range(0, len(mine), step):
-        pr = torch.from_numpy(mine[c0:c0 + step]).to(device)
-        n = pr.shape[0]
-        packed = nw_kernel.fill_batched(t, o, pr, [Nt], [No])
-        wires.append(_walk_wire(packed, [Nt] * n, [No] * n, device))
-        del packed
-    ops, k, xpt, ypt = unwire(_all_wires(wires, len(rows), mesh))
-    return [replay_ops(transcript, ocr, ops[b], int(k[b]), int(xpt[b]),
-                       int(ypt[b])) for b in range(len(rows))]
+    with span("ta.nw.align_grid"):
+        with span("ta.nw.encode"):
+            transcript = list(transcript) + [" "]
+            ocr = list(ocr) + [" "]
+            t_ids, o_ids = _token_ids(transcript, ocr)
+            Nt, No = len(t_ids), len(o_ids)
+            L, NoP = _bucket(Nt), _bucket(No)
+            p6 = np.asarray(params_list, np.int64)
+            if p6.ndim != 2 or p6.shape[1] != 6:
+                raise ValueError(f"params_list must be rows of 6 integers, "
+                                 f"got shape {p6.shape}")
+            rows = np.concatenate(
+                [p6, np.full((len(p6), 2), BOUNDARY_GAP_EXTEND, np.int64)],
+                axis=1).astype(np.int32)
+            mine = _rank_rows(rows, mesh)
+            step = grid_step(len(mine), L, NoP)
+            t = torch.from_numpy(_ext(t_ids, L)[None]).to(device)
+            o = torch.from_numpy(_ext(o_ids, NoP)[None]).to(device)
+        wires = []
+        for c0 in range(0, len(mine), step):
+            with span("ta.nw.fill"):
+                pr = torch.from_numpy(mine[c0:c0 + step]).to(device)
+                packed = nw_kernel.fill_batched(t, o, pr, [Nt], [No])
+            n = pr.shape[0]
+            wires.append(_walk_wire(packed, [Nt] * n, [No] * n, device))
+            del packed
+        ops, k, xpt, ypt = unwire(_all_wires(wires, len(rows), mesh))
+        with span("ta.nw.replay"):
+            return [replay_ops(transcript, ocr, ops[b], int(k[b]),
+                               int(xpt[b]), int(ypt[b]))
+                    for b in range(len(rows))]

@@ -1,11 +1,23 @@
-"""Per-stage timing/tracing — first-class observability the reference lacked
-(SURVEY.md §5: bare prints only). Wraps stages in context managers and can
-emit a torch profiler trace for the card's work.
+"""Per-stage timing and tracing — first-class observability the reference
+lacked (SURVEY.md §5: bare prints only).
 
-The port's copy of ``text_alignment_tpu/utils/timing.py``: the JAX device
-barrier becomes ``torch.cuda.synchronize`` and the JAX profiler trace
-``torch.profiler``; the JAX package's XLA compile log has no counterpart
-(PyTorch runs eagerly and compiles nothing).
+``span(name)`` is the port's one span primitive: while a ``torch.profiler``
+records, a host range named ``name`` among the profiler's host events, on
+the clock of its kernels and copies; otherwise a shared no-op. A running
+profiler is the only switch. The range is a plain record function, not a
+user annotation (``torch.profiler.record_function``), which the profiler
+would also copy onto the device track as a ``gpu_user_annotation`` event.
+The profiler keeps the ranges in memory and hands them out when it stops;
+a span's parent is the span that encloses it on the same thread.
+
+``StageTimer`` opens a ``ta.stage.<name>`` span for every stage and, when
+enabled, keeps per-stage totals on ``perf_counter`` (the CLI's
+``--timing``).
+
+The port's counterpart of ``text_alignment_tpu/utils/timing.py``, whose
+JAX device barrier and JAX profiler trace the span replaces; the XLA
+compile log has no counterpart (PyTorch runs eagerly and compiles
+nothing).
 """
 
 from __future__ import annotations
@@ -14,35 +26,39 @@ import contextlib
 import time
 from collections import defaultdict
 
+import torch
+from torch._C._profiler import _RecordFunctionFast as _range
 
-def _sync_cuda() -> None:
-    import torch
+_OFF = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
 
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+
+def span(name: str):
+    """A context manager: a host range named ``name`` while a profiler
+    records, else a shared no-op (one check, nothing allocated)."""
+    if not _recording():
+        return _OFF
+    return _range(name)
 
 
 class StageTimer:
-    def __init__(self, enabled: bool = True, sync_cuda: bool = False):
+    def __init__(self, enabled: bool = True):
         self.enabled = enabled
-        self.sync_cuda = sync_cuda
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync_cuda:
-                _sync_cuda()
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
+        with span("ta.stage." + name):
+            if not self.enabled:
+                yield
+                return
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def report(self) -> str:
         lines = []
@@ -53,18 +69,5 @@ class StageTimer:
         return "\n".join(lines)
 
 
-def stage_timer(enabled: bool = True, sync_cuda: bool = False) -> StageTimer:
-    return StageTimer(enabled=enabled, sync_cuda=sync_cuda)
-
-
-@contextlib.contextmanager
-def torch_profile_trace(path: str):
-    """Capture a torch profiler trace of the host and the card (a Chrome
-    trace JSON at ``path``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        yield prof
-    _sync_cuda()
-    prof.export_chrome_trace(path)
+def stage_timer(enabled: bool = True) -> StageTimer:
+    return StageTimer(enabled=enabled)
