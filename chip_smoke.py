@@ -1111,7 +1111,8 @@ def grid_split(t, o, grid, dev, mesh=None) -> dict:
     """align_grid's work on the pair in its parts, as align_grid does it
     (this rank's rows under ``mesh``): the fill and the walk summed over
     the launches (CUDA events), then the wires' gather (under a mesh) and
-    one copy to the host, and the host replay of every row (host clock)."""
+    one copy to the host, and the host replay of each distinct wire
+    (host clock)."""
     transcript, ocr = list(t) + [" "], list(o) + [" "]
     t_ids, o_ids = nwt._token_ids(transcript, ocr)
     Nt, No = len(t_ids), len(o_ids)
@@ -1137,10 +1138,8 @@ def grid_split(t, o, grid, dev, mesh=None) -> dict:
         parts["walk"] += w_ms
     host, parts["gather_copy"] = wall_ms(
         lambda: nwt._all_wires(wires, len(rows), mesh))
-    ops, k, x, y = nwt.unwire(host)
-    _, parts["replay"] = wall_ms(lambda: [nwt.replay_ops(
-        transcript, ocr, ops[b], int(k[b]), int(x[b]), int(y[b]))
-        for b in range(len(rows))])
+    _, parts["replay"] = wall_ms(
+        lambda: nwt.replay_rows(transcript, ocr, host))
     parts.update(rows=len(mine), step=step)
     return parts
 

@@ -415,6 +415,106 @@ def test_align_grid_cuts_equal_launches(monkeypatch):
     assert got == nw_jax.align_grid_jax(t, o, rows)
 
 
+def _grid_wire(t, o, rows, monkeypatch):
+    """align_grid's alignments of (t, o) under ``rows`` on the CPU and the
+    host wire it replayed them from."""
+    wires = []
+    replay_rows = nw_torch.replay_rows
+
+    def spy(transcript, ocr, wire):
+        wires.append(wire.copy())
+        return replay_rows(transcript, ocr, wire)
+
+    monkeypatch.setattr(nw_torch, "replay_rows", spy)
+    got = nw_torch.align_grid(t, o, rows, device="cpu")
+    monkeypatch.undo()
+    return got, wires[0]
+
+
+def _live(wire):
+    """The distinct live parts [k, xpt, ypt, ops[:k]] of a wire's rows."""
+    return {tuple(row[:3 + row[0]]) for row in wire.tolist()}
+
+
+# (case, rows of the scoring grid, distinct live parts: None where the
+# test counts them from the wire)
+GROUPING = [("duplicates", slice(None, None, 27), None),
+            ("distinct", slice(0, 6), 6),
+            ("ops_past_k", slice(0, 1), 1)]
+
+
+@pytest.mark.parametrize("case,rows,distinct", GROUPING,
+                         ids=[c[0] for c in GROUPING])
+def test_align_grid_replays_each_distinct_wire_once(case, rows, distinct,
+                                                    monkeypatch):
+    """align_grid replays each distinct live part of the wire once: every
+    row equals replay_ops on its own wire and align_grid_jax, no two rows
+    share a list, and mutating a row's lists leaves every other row as it
+    was. ``ops_past_k``: rows whose wires differ only past k (the ops'
+    padding and the walk's counts in the last slots) share one replay."""
+    rng = random.Random(12)
+    t, o = random_pair(rng, 70, 85)
+    rows = scoring_grid()[rows]
+    got, wire = _grid_wire(t, o, rows, monkeypatch)
+    transcript, ocr = t + [" "], o + [" "]
+    if case == "ops_past_k":
+        k = int(wire[0, 0])
+        wire = np.repeat(wire, 3, axis=0)
+        wire[1, 3 + k:] = np.arange(wire.shape[1] - 3 - k) % 3
+        wire[2, 3 + k:] = -7
+        rows = np.repeat(rows, 3, axis=0)
+        assert len({w.tobytes() for w in wire}) == 3
+    calls = []
+    replay_ops = nw_torch.replay_ops
+
+    def counted(*args):
+        calls.append(args[3])
+        return replay_ops(*args)
+
+    monkeypatch.setattr(nw_torch, "replay_ops", counted)
+    if case == "ops_past_k":
+        got = nw_torch.replay_rows(transcript, ocr, wire)
+    else:
+        got = nw_torch.align_grid(t, o, rows, device="cpu")
+    monkeypatch.undo()
+    live = _live(wire)
+    assert len(calls) == len(live)
+    if distinct is None:
+        assert 1 < len(live) < len(rows)
+    else:
+        assert len(live) == distinct
+    ops, k, xpt, ypt = nw_torch.unwire(wire)
+    want = [nw_torch.replay_ops(transcript, ocr, ops[b], int(k[b]),
+                                int(xpt[b]), int(ypt[b]))
+            for b in range(len(wire))]
+    assert got == want == nw_jax.align_grid_jax(t, o, rows)
+    lists = [id(x) for pair in got for x in pair]
+    assert len(set(lists)) == len(lists) == 2 * len(rows)
+    for b in range(len(got)):  # mutate each row in turn
+        got[b][0].append("#")
+        got[b][1].clear()
+        assert got[b + 1:] == want[b + 1:]
+
+
+def test_replay_rows_raises_where_a_stream_ends_off_its_tail(monkeypatch):
+    """A row whose op stream ends off its walk's tail raises replay_ops'
+    RuntimeError, after rows that share another row's replay."""
+    rng = random.Random(12)
+    t, o = random_pair(rng, 70, 85)
+    _, wire = _grid_wire(t, o, scoring_grid()[:2], monkeypatch)
+    transcript, ocr = t + [" "], o + [" "]
+    bad = wire[1].copy()
+    bad[1] += 1  # the walk's xpt tail
+    wire = np.stack([wire[0], wire[1], wire[0], bad, wire[1]])
+    ops, k, xpt, ypt = nw_torch.unwire(bad)
+    with pytest.raises(RuntimeError) as want:
+        nw_torch.replay_ops(transcript, ocr, ops, int(k), int(xpt), int(ypt))
+    with pytest.raises(RuntimeError) as got:
+        nw_torch.replay_rows(transcript, ocr, wire)
+    assert str(got.value) == str(want.value)
+    assert "NW op stream ends at" in str(got.value)
+
+
 def test_cpu_dispatcher_takes_and_ignores_sizes():
     """On CPU tensors fill_batched takes the pair sizes and returns the
     plain version's whole bucket, byte for byte, whatever the sizes."""

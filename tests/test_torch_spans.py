@@ -18,7 +18,7 @@ from text_alignment_tpu_torch.utils.timing import StageTimer
 torch.set_num_threads(1)
 
 STAGES = ("ta.nw.encode", "ta.nw.fill", "ta.nw.walk", "ta.nw.wire",
-          "ta.nw.replay")
+          "ta.nw.replay", "ta.nw.replay_one")
 ROWS = [[m, mm, go, go, ge, ge] for m in (1, 2, 3) for mm in (-1, -2, -3)
         for go, ge in [(-2, -1)]]
 
@@ -92,10 +92,33 @@ def test_nw_spans_nest_in_their_order(call):
         if name == parent:
             continue
         inside = top[1] <= s <= e <= top[2]
-        if name == "ta.nw.replay" and not replay_inside:
+        if name.startswith("ta.nw.replay") and not replay_inside:
             assert s >= top[2], (name, s, top)
         else:
             assert inside, (name, s, e, top)
+
+
+def replays(call):
+    """The ``ta.nw.replay_one`` spans a call should open: one a distinct
+    alignment of the grid's rows (each row's wire is distinct exactly
+    where its alignment is, on this pair), one a pair that ran on the
+    device (two of run_pairs' three: the third has 130 cells), one for
+    perform_alignment."""
+    if call == "align_grid":
+        return len({(tuple(a), tuple(b)) for a, b in profiled(call)[0]})
+    return 2 if call == "align_pairs" else 1
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_replay_one_spans_nest_in_the_replay(call):
+    _, spans = profiled(call)
+    (replay,) = [s for s in spans if s[0] == "ta.nw.replay"]
+    ones = [s for s in spans if s[0] == "ta.nw.replay_one"]
+    assert len(ones) == replays(call)
+    for _, s, e, _ in ones:
+        assert replay[1] <= s <= e <= replay[2], (s, e, replay)
+    if call == "align_grid":
+        assert 1 < len(ones) < len(ROWS)
 
 
 @pytest.mark.parametrize("call", sorted(CALLS))

@@ -15,7 +15,8 @@ name (``ta.nw.align_grid``, ``ta.nw.align_pairs``, ``ta.nw.align_ops``)
 and, inside it, one span a stage: ``ta.nw.encode`` (ids, buckets, scoring
 rows, lane layout, uploads), ``ta.nw.fill`` and ``ta.nw.walk`` (the host
 side of each launch), ``ta.nw.wire`` (the host waiting for the card's
-wire) and ``ta.nw.replay`` (every row's replay, one span a call).
+wire) and ``ta.nw.replay`` (every row's replay, one span a call), inside
+it ``ta.nw.replay_one`` (one :func:`replay_ops` call).
 """
 
 from __future__ import annotations
@@ -131,45 +132,70 @@ def replay_ops(transcript, ocr, ops, count, xpt_tail, ypt_tail):
     the forced sentinel pair, the leftover gap runs and the [-1:0:-1]
     reversal. Vectorized: the cursor before each step is an exclusive
     prefix sum of the op stream's decrements."""
-    xpt = len(transcript) - 1
-    ypt = len(ocr) - 1
-    if count > 0:
-        o = np.asarray(ops[:count], np.int64)
-        dx = o != 2  # op 0 (diag) and 1 (x-gap) consume a transcript char
-        dy = o != 1  # op 0 (diag) and 2 (y-gap) consume an OCR char
-        cx = np.cumsum(dx)
-        cy = np.cumsum(dy)
-        xpt_i = xpt - cx + dx
-        ypt_i = ypt - cy + dy
-        t_arr = np.array(transcript, dtype=object)
-        o_arr = np.array(ocr, dtype=object)
-        gap = np.array(["_"], dtype=object)[0]
-        tra_mid = np.where(dx, t_arr[xpt_i - 1], gap)
-        ocr_mid = np.where(dy, o_arr[ypt_i - 1], gap)
-        tra_align = [transcript[xpt]] + list(tra_mid)
-        ocr_align = [ocr[ypt]] + list(ocr_mid)
-        xpt -= int(cx[-1])
-        ypt -= int(cy[-1])
-    else:
-        tra_align = [transcript[xpt]]
-        ocr_align = [ocr[ypt]]
-    if (xpt, ypt) != (xpt_tail, ypt_tail):
-        raise RuntimeError(
-            f"NW op stream ends at ({xpt}, {ypt}), the walk at "
-            f"({xpt_tail}, {ypt_tail})")
+    with span("ta.nw.replay_one"):
+        xpt = len(transcript) - 1
+        ypt = len(ocr) - 1
+        if count > 0:
+            o = np.asarray(ops[:count], np.int64)
+            dx = o != 2  # op 0 (diag) and 1 (x-gap) consume a transcript char
+            dy = o != 1  # op 0 (diag) and 2 (y-gap) consume an OCR char
+            cx = np.cumsum(dx)
+            cy = np.cumsum(dy)
+            xpt_i = xpt - cx + dx
+            ypt_i = ypt - cy + dy
+            t_arr = np.array(transcript, dtype=object)
+            o_arr = np.array(ocr, dtype=object)
+            gap = np.array(["_"], dtype=object)[0]
+            tra_mid = np.where(dx, t_arr[xpt_i - 1], gap)
+            ocr_mid = np.where(dy, o_arr[ypt_i - 1], gap)
+            tra_align = [transcript[xpt]] + list(tra_mid)
+            ocr_align = [ocr[ypt]] + list(ocr_mid)
+            xpt -= int(cx[-1])
+            ypt -= int(cy[-1])
+        else:
+            tra_align = [transcript[xpt]]
+            ocr_align = [ocr[ypt]]
+        if (xpt, ypt) != (xpt_tail, ypt_tail):
+            raise RuntimeError(
+                f"NW op stream ends at ({xpt}, {ypt}), the walk at "
+                f"({xpt_tail}, {ypt_tail})")
 
-    if ypt > 0:
-        tra_align.extend(["_"] * ypt)
-        ocr_align.extend(ocr[ypt - 1::-1])
-    if xpt > 0:
-        ocr_align.extend(["_"] * xpt)
-        tra_align.extend(transcript[xpt - 1::-1])
-    return tra_align[-1:0:-1], ocr_align[-1:0:-1]
+        if ypt > 0:
+            tra_align.extend(["_"] * ypt)
+            ocr_align.extend(ocr[ypt - 1::-1])
+        if xpt > 0:
+            ocr_align.extend(["_"] * xpt)
+            tra_align.extend(transcript[xpt - 1::-1])
+        return tra_align[-1:0:-1], ocr_align[-1:0:-1]
 
 
 def unwire(wire):
     """(ops, k, xpt, ypt) of a host copy of the traceback wire."""
     return wire[..., 3:], wire[..., 0], wire[..., 1], wire[..., 2]
+
+
+def replay_rows(transcript, ocr, wire):
+    """:func:`replay_ops` of every row of a (B, 3 + P) host wire, in row
+    order, one call per distinct live part ``[k, xpt, ypt, ops[:k]]``: a
+    grid's rows hold few distinct alignments. The replay reads nothing
+    else of a row, so the ops past k (padding, the walk's counts) never
+    split two equal streams. The first row of a live part takes the
+    replayed lists, every further row copies of them (callers may mutate
+    a row's lists); a stream that ends off its walk's tail raises at its
+    first row, as a replay of every row would."""
+    ops, k, xpt, ypt = unwire(wire)
+    done = {}
+    out = []
+    for b, kb in enumerate(k.tolist()):
+        key = wire[b, :3 + max(kb, 0)].tobytes()
+        hit = done.get(key)
+        if hit is None:
+            hit = done[key] = replay_ops(transcript, ocr, ops[b], kb,
+                                         int(xpt[b]), int(ypt[b]))
+            out.append(hit)
+        else:
+            out.append((list(hit[0]), list(hit[1])))
+    return out
 
 
 def _walk_wire(packed, nts, nos, device):
@@ -342,7 +368,8 @@ def align_grid(transcript, ocr, params_list, device=None, mesh=None):
     row and the one OCR row (``shared_feed``) and its own scoring row
     (``per_pair``); the combination axis is cut into equal launches whose
     packed pointers stay within ``PTR_BUDGET`` (:func:`grid_step`).
-    Returns (tra_align, ocr_align) per row. Sentinels are appended here.
+    Returns (tra_align, ocr_align) per row, each distinct wire replayed
+    once (:func:`replay_rows`). Sentinels are appended here.
     ``device``: None means the card (:func:`.api.resolve_device`), or
     under a ``mesh`` this rank's device. ``mesh``: the rows are sharded
     over the mesh's ``data`` axis (padded with copies of row 0, their
@@ -375,8 +402,6 @@ def align_grid(transcript, ocr, params_list, device=None, mesh=None):
             n = pr.shape[0]
             wires.append(_walk_wire(packed, [Nt] * n, [No] * n, device))
             del packed
-        ops, k, xpt, ypt = unwire(_all_wires(wires, len(rows), mesh))
+        wire = _all_wires(wires, len(rows), mesh)
         with span("ta.nw.replay"):
-            return [replay_ops(transcript, ocr, ops[b], int(k[b]),
-                               int(xpt[b]), int(ypt[b]))
-                    for b in range(len(rows))]
+            return replay_rows(transcript, ocr, wire)
