@@ -12,9 +12,10 @@ and each per-layer metric is read by ``benchmark/layer_metrics/<name>.py``.
 
 Set-up makes the inputs and the weights from ``--seed``, builds the
 program's objects and runs every shape of the cell once. The window then
-runs the traffic for ``--seconds``; with ``--trace 1`` the program's stage
-timer is on, and ``torch.profiler`` records the traced items, run just
-before the window, each ended by a sync.
+runs the traffic for ``--seconds``; with ``--trace 1`` ``torch.profiler``
+records the traced items (the card's events and the host's, the program's
+``ta.`` spans among them), run just before the window, each ended by a
+sync. No run turns the program's stage timer on.
 After the window the check compares what the window produced with the
 plain reference (``benchmark/reference/``), and the last line of standard
 output is the result's JSON object; the numbers compared, each beside its
