@@ -160,7 +160,16 @@ Phases, each printing one line (any failure exits non-zero):
      measured calls, JSON byte-identical to backend="hybrid" on the card
      and to backend="device" on the CPU; cc_clean, cc_table, nw_fill,
      nw_traceback, lstm_scan and lineest_tail launched in the measured
-     calls; ms of both backends with the stage split; phase 13's 8 folios
+     calls; ms of both backends with the stage split; backend="hybrid" on
+     the card rasters there: one raster_rotate_erode, one cc_clean and one
+     cc_table launch a folio, JSON byte-identical to backend="hybrid" on
+     the CPU (the native engine); the card route's raster by step, host
+     ms (each step ending in a sync) and device ms (torch.profiler); the
+     rotate + erode + project kernel (csrc/raster.cu) on the folio's
+     packed stage-1 page at its detected angle and seeded ones, bit for
+     bit its plain version (on the CPU) and the native rotate + erode
+     and projection, its ms beside its bound and the plain chain's ms on
+     the card; phase 13's 8 folios
      through process_batch(backend="device") give phase 13's JSON, ms per
      folio beside phase 13's modes; rodan_job.run_task with its default
      backend on the folio gives process()'s JSON; the 499 x 40 px
@@ -194,7 +203,8 @@ phases prints its wall and the script's so far ("wall:").
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
 nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
-kernels, phase 16's one-at-a-time drain for lineest_full, phase 23's
+kernels, phase 16's one-at-a-time drain for lineest_full, phase 21's
+backend="hybrid" calls for raster_rotate_erode, phase 23's
 measured calls for lstm_scan.kraken and lineest_tail.kraken), error, times
 and bound (nw_fill_batched's at one 2400^2 grid launch, the shape its
 launches have, with its chain floor beside; lstm_scan.kraken's at the
@@ -258,14 +268,16 @@ from text_alignment_tpu_torch.models.recognizer import (
     SeqRecognizer, _unpack_bits)
 from text_alignment_tpu_torch.models.train import (
     Trainer, batch_lines, clip_by_global_norm)
-from text_alignment_tpu_torch.ops import cc, oracle
+from text_alignment_tpu_torch.ops import cc, host_native, oracle
+from text_alignment_tpu_torch.ops import device as dv
+from text_alignment_tpu_torch.ops import fixedpoint as fxp
 from text_alignment_tpu_torch.ops import raster_device as rd
 from text_alignment_tpu_torch.ops import skew_device as sd
 from text_alignment_tpu_torch.parallel import process_batch
 from text_alignment_tpu_torch.pipeline import device_raster
 from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
 from text_alignment_tpu_torch.pipeline.preprocess import (
-    PreprocParams, _peaks_and_separators, identify_text_lines,
+    PackedPage, PreprocParams, _peaks_and_separators, identify_text_lines,
     preprocess_images)
 from text_alignment_tpu_torch.pipeline.process import _resolve_recognizer
 from text_alignment_tpu_torch.serve import serve
@@ -2649,37 +2661,108 @@ def timed_process(page, path, backend, device, n):
 
 
 def device_raster_split(image, dev, n: int = 3) -> dict:
-    """Host-clock ms of each step of preprocess_images(backend="device")
-    on ``image`` (medians of n runs), each step ending in a sync."""
-    from text_alignment_tpu_torch.ops import device as dv
-    from text_alignment_tpu_torch.ops import fixedpoint as fxp
-
-    runs = []
+    """Each step of the card route's raster on ``image``
+    (preprocess_device_packed, then the line finder on the packed page):
+    host-clock ms (medians of n runs, each step ending in a sync) and
+    device ms (the sum of the step's device events under torch.profiler,
+    the largest of its profiled calls)."""
+    p = PreprocParams()
+    runs, steps = [], {}
     for _ in range(n):
-        ms = {}
+        ms, st = {}, {}
 
         def step(name, fn):
             out, ms[name] = wall_ms(fn)
+            st[name] = fn
             return out
 
-        grey = step("greyscale", lambda: dv.to_greyscale(image, dev))
-        t = step("histogram", lambda: dv._otsu_from_hist(
+        grey = step("upload + greyscale", lambda: dv.to_greyscale(image,
+                                                                  dev))
+        t = step("histogram + Otsu", lambda: dv._otsu_from_hist(
             dv.grey_histogram(grey, dev).cpu().numpy()))
-        img = step("cleanup chain", lambda: dv.preproc_stage1(
-            grey, t, 100, 150, device=dev))
-        angle = step("skew", lambda: dv.rotation_angle_projections(
-            img, device=dev))
-        H, W = img.shape
+        H, W = int(grey.shape[0]), int(grey.shape[1])
+        cleaned, ok = step("cleanup chain", lambda: dv.preproc_stage1_packed(
+            grey, t, p.despeckle_amt, p.sat_area_thresh, device=dev))
+        idx = step("skew", lambda: torch.cat([sd.search(
+            cc.unpack_bits(cleaned, W), -6, 6), ok.to(torch.int64)]).tolist())
+        angle = sd.angle_from_indices(*idx[:3], -6, 6)
         H2, W2 = fxp.rotated_canvas(H, W, angle)
-        packed = step("rotate + erode + project",
-                      lambda: dv.rotate_erode_project(
-                          img, *fxp.rotation_coeffs(angle), H2, W2, 1, 2,
-                          dev))
-        step("download + unpack", lambda: [
-            dv.unpack_bool(p.cpu().numpy(), W2) for p in packed[:2]])
+        cs = fxp.rotation_coeffs(angle)
+        rot = step("rotate + erode + project",
+                   lambda: dv.rotate_erode_project_packed(
+                       cleaned, H, W, *cs, H2, W2))
+        wire, image_bin = step("download + unpack", lambda: (
+            w := torch.cat([rot[2], rot[0].reshape(-1)]).cpu().numpy(),
+            dv.unpack_bool(w[H2:].reshape(H2, -1), W2)))
+        step("line finder", lambda: identify_text_lines(
+            image_bin, PackedPage(rot[1], W2, wire[:H2]), backend="device",
+            device=dev))
         runs.append(ms)
-    return {k: round(float(np.median([r[k] for r in runs])), 3)
-            for k in runs[0]}
+        steps = st
+    out = {}
+    for name, fn in steps.items():
+        calls, _ = device_events(fn, repeat=2)
+        dev_ms = max((sum(e - s for _, s, e in c) for c in calls),
+                     default=0.0) / 1e3
+        out[name] = {"host_ms": round(float(np.median(
+            [r[name] for r in runs])), 3), "device_ms": round(dev_ms, 4)}
+    return out
+
+
+RASTER_ANGLES = (0.8, -0.8, 6.0, -6.0)  # and three seeded ones
+
+
+def phase_raster_kernel(image, dev, seed: int = 21) -> dict:
+    """The rotate + erode + project kernel on ``image``'s packed stage-1
+    page (the native engine's) at its detected angle, RASTER_ANGLES and
+    three seeded angles: bit for bit its plain version (on the CPU) and
+    the native rotate + erode and row projection; its ms, its bound and
+    the plain chain's ms on the card at the detected angle."""
+    img, runs, n_runs = host_native.preprocess_page_phase1(image, 100, 150)
+    H, W = img.shape
+    detected = host_native.rotation_angle_projections(
+        img, -6, 6, runs_n=(runs, n_runs))
+    seeded = np.round(np.random.default_rng(seed).uniform(-6, 6, 3), 2)
+    pk = torch.from_numpy(cc.pack_page(img.astype(bool)))
+    pkd = pk.to(dev)
+
+    def geometry(angle):
+        return (*fxp.rotation_coeffs(angle),
+                *fxp.rotated_canvas(H, W, angle))
+
+    for angle in (detected, *RASTER_ANGLES, *map(float, seeded)):
+        g = geometry(angle)
+        got = [t.cpu() for t in dv.rotate_erode_project_packed(
+            pkd, H, W, *g)]
+        want = dv.rotate_erode_project_reference(pk, H, W, *g)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"raster_rotate_erode differs from its plain version at "
+              f"{angle} deg")
+        bin_n, ero_n = host_native.preprocess_page_phase2(
+            img, runs, n_runs, angle, 1, 2, True)
+        check(np.array_equal(cc.unpack_page(got[0].numpy(), *g[2:]), bin_n)
+              and np.array_equal(cc.unpack_page(got[1].numpy(), *g[2:]),
+                                 ero_n)
+              and np.array_equal(got[2].numpy(),
+                                 host_native.projection_rows(ero_n)),
+              f"raster_rotate_erode differs from the native engine at "
+              f"{angle} deg")
+    g = geometry(detected)
+    H2, W2 = g[2:]
+    ms = cuda_ms(lambda: dv.rotate_erode_project_packed(pkd, H, W, *g), 50)
+    plain_ms = cuda_ms(lambda: dv.rotate_erode_project_reference(
+        pkd, H, W, *g), 10)
+    # the packed page in, two packed pages and the projection out; some 20
+    # integer operations a rotated pixel
+    b = bound(4 * pk.numel() + 2 * 4 * H2 * -(-W2 // 32) + 4 * H2,
+              20 * H2 * W2)
+    print(f"raster_rotate_erode: {H} x {W} -> {H2} x {W2} at {detected} deg "
+          f"and at {list(RASTER_ANGLES) + seeded.tolist()}: bit for bit its "
+          f"plain version and the native engine; kernel {ms:.4f} ms, plain "
+          f"chain on the card {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} "
+          f"ms by {b['bound_by']}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
@@ -2698,16 +2781,32 @@ def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
     _kernels.reset_launches()
     js, ms, stages = timed_process(page, path, "device", dev, DEVICE_CALLS)
     launches = dict(_kernels.launches)
+    _kernels.reset_launches()
     js_h, ms_h, stages_h = timed_process(page, path, "hybrid", dev,
                                          DEVICE_CALLS)
+    launches_h = dict(_kernels.launches)
     js_cpu, ms_cpu, _ = timed_process(page, path, "device",
                                       torch.device("cpu"), 1)
+    js_h_cpu, _, _ = timed_process(page, path, "hybrid",
+                                   torch.device("cpu"), 1)
     print(f"device backend: folio process(backend=\"device\") {ms:.1f} ms "
           f"(median of {DEVICE_CALLS}), stages ms {stages}; "
           f"backend=\"hybrid\" {ms_h:.1f} ms, stages {stages_h}; CPU "
           f"{ms_cpu:.1f} ms; launches {launches} ({card})")
-    print(f"device backend: the folio's raster by step, ms "
+    folio_launches = {k: v / DEVICE_CALLS for k, v in launches_h.items()
+                      if v}
+    print(f"device backend: backend=\"hybrid\" on the card, launches a "
+          f"folio {folio_launches}; JSON identical to the CPU's (native "
+          f"raster) {js_h == js_h_cpu}")
+    for name in ("raster_rotate_erode", "cc_clean", "cc_table"):
+        check(launches_h[name] == DEVICE_CALLS, f"process(backend='hybrid') "
+              f"on the card: {launches_h[name]} {name} launches in "
+              f"{DEVICE_CALLS} folios")
+    check(js_h == js_h_cpu, "process(backend='hybrid') differs between the "
+          "card and the CPU")
+    print(f"device backend: the card route's raster by step "
           f"{device_raster_split(page.image, dev)} ({card})")
+    raster = phase_raster_kernel(page.image, dev)
     check(js == js_h, "process(backend='device') differs from 'hybrid' on "
           "the card")
     check(js == js_cpu, "process(backend='device') differs between the card "
@@ -2760,6 +2859,7 @@ def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
           "the serpentine is not one component")
     print(f"device backend: phase 21 {time.perf_counter() - t0:.1f} s "
           f"({card})")
+    return raster, launches_h["raster_rotate_erode"]
 
 
 class Walls:
@@ -2893,8 +2993,9 @@ def main(argv) -> int:
     walls.lap("14-16")
     phase_profile()
     walls.lap("17")
-    phase_device_backend(dev, card, path, page, batch_pages, batch_seq,
-                         batch_ms)
+    stats["raster_rotate_erode"], launches["raster_rotate_erode"] = \
+        phase_device_backend(dev, card, path, page, batch_pages, batch_seq,
+                             batch_ms)
     walls.lap("21")
     phase_bench(card)
     walls.lap("22")
@@ -2927,7 +3028,11 @@ def main(argv) -> int:
                "nw_traceback": (f"{csrc}/nw_traceback.cu", f"{pallas}:733"),
                "cc_filter": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:443"),
                "cc_table": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:537"),
-               "cc_clean": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:662")}
+               "cc_clean": (f"{csrc}/cc_filter.cu", f"{cc_pallas}:662"),
+               # no Pallas kernel: the XLA ops of rotate_erode_project
+               "raster_rotate_erode": (
+                   f"{csrc}/raster.cu",
+                   "text_alignment_tpu/ops/device.py rotate_erode_project")}
     # kraken's network on the main path (phase 23)
     for name in ("lstm_scan", "lineest_tail"):
         sources[f"{name}.kraken"] = sources[name]

@@ -660,6 +660,115 @@ def test_skew_search_on_the_card(cuda):
                 == oracle.rotation_angle_projections(a, -6, 6))
 
 
+def _bench_page(seed):
+    """The benchmark's page geometry (2000 x 1600, 10 lines of 3 words,
+    0.8 degree skew)."""
+    from text_alignment_tpu_torch.synth import make_page
+
+    return make_page(np.random.default_rng(seed), n_lines=10,
+                     words_per_line=3, H=2000, W=1600, char_h=70, char_w=40,
+                     gap=8, space_w=60, line_spacing=180, speckles=200,
+                     margin_x=60, angle=0.8)
+
+
+def _raster_pages():
+    """(name, stage-1 page, runs, n_runs): the bench page's native stage 1,
+    and a seeded page wide enough that a CTA takes fewer rows."""
+    from text_alignment_tpu_torch.ops import host_native
+
+    wide = np.where(np.random.default_rng(9).random((90, 12005, 3)) < 0.4,
+                    0, 255).astype(np.uint8)
+    return [("bench",) + host_native.preprocess_page_phase1(
+                _bench_page(24).image, 100, 150),
+            ("wide",) + host_native.preprocess_page_phase1(wide, 2, 150)]
+
+
+# None: correct_rotation=False; then seeded angles of the search's range
+RASTER_ANGLES = [None, 0.8, -0.8, 6.0, -6.0] + [
+    round(float(a), 2) for a in np.random.default_rng(3).uniform(-6, 6, 3)]
+
+
+@pytest.mark.parametrize("angle", RASTER_ANGLES)
+def test_raster_kernel_matches_plain_and_native(cuda, angle):
+    """ta_raster_rotate_erode on the packed stage-1 page gives its plain
+    version's rotated page, eroded page and projection bit for bit, and
+    the native engine's rotate + erode (ta_erode2) and row projection."""
+    from text_alignment_tpu_torch.ops import cc, host_native
+    from text_alignment_tpu_torch.ops import device as dv
+    from text_alignment_tpu_torch.ops import fixedpoint as fxp
+
+    for name, img, runs, n_runs in _raster_pages():
+        H, W = img.shape
+        if angle is None:
+            cfix, sfix, H2, W2 = fxp.SCALE, 0, H, W
+        else:
+            cfix, sfix = fxp.rotation_coeffs(angle)
+            H2, W2 = fxp.rotated_canvas(H, W, angle)
+        packed = torch.from_numpy(cc.pack_page(img.astype(bool)))
+        _kernels.reset_launches()
+        got = dv.rotate_erode_project_packed(packed.to(cuda), H, W, cfix,
+                                             sfix, H2, W2)
+        torch.cuda.synchronize()
+        assert _kernels.launches["raster_rotate_erode"] == 1
+        band = _kernels.lib().ta_raster_band_rows(-(-W2 // 32))
+        assert (band < 16) == (name == "wide")
+        want = dv.rotate_erode_project_reference(packed, H, W, cfix, sfix,
+                                                 H2, W2)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), name)
+        bin_n, ero_n = host_native.preprocess_page_phase2(
+            img, runs, n_runs, 0.0 if angle is None else angle, 1, 2,
+            angle is not None)
+        np.testing.assert_array_equal(
+            cc.unpack_page(got[0].cpu().numpy(), H2, W2), bin_n)
+        np.testing.assert_array_equal(
+            cc.unpack_page(got[1].cpu().numpy(), H2, W2), ero_n)
+        np.testing.assert_array_equal(got[2].cpu().numpy(),
+                                      host_native.projection_rows(ero_n))
+
+
+def test_process_hybrid_rasters_on_the_card(cuda, monkeypatch):
+    """process(backend="hybrid") on the card rasters the folio there: one
+    raster_rotate_erode, one cc_clean and one cc_table launch a folio, the
+    native engine's strips (the CPU's route) and the CPU's JSON."""
+    import importlib
+
+    from text_alignment_tpu_torch.pipeline import to_JSON_dict
+    from text_alignment_tpu_torch.pipeline.assemble import to_processed_frame
+    from text_alignment_tpu_torch.pipeline.preprocess import preprocess_images
+    from text_alignment_tpu_torch.synth import corrupt_ocr, ocr_with_spaces
+
+    proc = importlib.import_module(
+        "text_alignment_tpu_torch.pipeline.process")
+    page = _bench_page(31)
+    image, _, angle = preprocess_images(page.image, backend="hybrid")
+    ocr = [to_processed_frame(cb, angle, image.shape, page.image.shape)
+           for cb in ocr_with_spaces(corrupt_ocr(np.random.default_rng(5),
+                                                 page.char_boxes))]
+    finder, seen = proc.identify_text_lines, []
+
+    def lines(image, eroded, backend, **kw):
+        out = finder(image, eroded, backend=backend, **kw)
+        seen.append((backend, [(s.offset_x, s.offset_y, s.img.tobytes())
+                               for s in out[0]]))
+        return out
+
+    monkeypatch.setattr(proc, "identify_text_lines", lines)
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        _kernels.reset_launches()
+        res = proc.process(page.image, page.transcript, existing_ocr=ocr,
+                           verbose=False, backend="hybrid", device=dev)
+        torch.cuda.synchronize()
+        out[str(dev)] = to_JSON_dict(res[0], res[2])
+        launches = dict(_kernels.launches)
+    for k in ("raster_rotate_erode", "cc_clean", "cc_table"):
+        assert launches[k] == 1, (k, launches)
+    assert [b for b, _ in seen] == ["hybrid", "device", "device"]
+    assert seen[1][1] == seen[2][1] == seen[0][1] and len(seen[0][1]) == 10
+    assert out["cuda"] == out["cpu"] and out["cpu"]["syl_boxes"]
+
+
 def _train_batch(B, T, ni, nlab, seed):
     rng = np.random.default_rng(seed)
     xs = rng.random((B, T, ni)).astype(np.float32)

@@ -31,7 +31,7 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("lstm_scan.cu", "lineest_tail.cu", "lineest_full.cu",
-           "nw_fill.cu", "nw_traceback.cu", "cc_filter.cu")
+           "nw_fill.cu", "nw_traceback.cu", "cc_filter.cu", "raster.cu")
 HEADERS = ("lineest_tail.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,7 +41,8 @@ SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 
 launches = {"lstm_scan": 0, "lineest_tail": 0, "lineest_full": 0,
             "nw_fill": 0, "nw_fill_batched": 0, "nw_traceback": 0,
-            "cc_filter": 0, "cc_table": 0, "cc_clean": 0}
+            "cc_filter": 0, "cc_table": 0, "cc_clean": 0,
+            "raster_rotate_erode": 0}
 build_seconds: float | None = None  # wall time of the last nvcc build
 
 _lib = None
@@ -167,6 +168,11 @@ def lib():
         L.ta_cc_clean.restype = i
         L.ta_cc_clean.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                   i, p]
+        L.ta_raster_band_rows.restype = i
+        L.ta_raster_band_rows.argtypes = [i]
+        L.ta_raster_rotate_erode.restype = i
+        L.ta_raster_rotate_erode.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                             i, p]
         _lib = L
         return L
 

@@ -23,6 +23,13 @@ bit-identical to the JAX module and to the host oracle.
 - **cc_label** (tests only) paints each black pixel with its component's
   smallest flat index, the start ``y * W + x0`` of the component's root
   run, from :func:`.cc.run_labels`; white pixels hold H * W.
+- **Rotate + erode + project** of the packed page
+  (:func:`rotate_erode_project_packed`): on a CUDA tensor at the
+  pipeline's one k = 2 erosion, the kernel of ``csrc/raster.cu``
+  (:mod:`.raster_kernel`), which keeps the page bit-packed from the
+  cleanup chain's output to the eroded page and its row projection; its
+  plain version (:func:`rotate_erode_project_reference`) is the torch chain
+  below.
 - **Everything else** is torch integer ops: the run filters are
   :func:`.raster_device.filter_runs_impl`, the rotation is the shared Q16
   inverse map (:mod:`.fixedpoint`) onto the exact canvas
@@ -43,6 +50,7 @@ from ..align.api import resolve_device
 from . import cc
 from . import fixedpoint as fxp
 from . import oracle
+from . import raster_kernel
 from . import skew_device as sd
 from .raster_device import _rotate_max_canvas, filter_runs_impl
 
@@ -97,13 +105,19 @@ def cc_label(img, device=None):
 
 
 def _table(img, max_ccs: int):
-    """The stats table of a bool page on its device: ((max_ccs, 5) int32
-    rows (rmin, rmax, cmin, cmax, area) in scan order of roots, the true
-    component count). Past ``max_ccs`` the table kernel reports max_ccs,
-    so the count is taken again at a capacity of one row a run."""
+    """The stats table of a bool page on its device: see
+    :func:`_table_packed`."""
     H, W = img.shape
+    return _table_packed(cc.pack_bool(img), H, W, max_ccs)
+
+
+def _table_packed(packed, H: int, W: int, max_ccs: int):
+    """The stats table of a bit-packed (H, ceil(W/32)) page on its device:
+    ((max_ccs, 5) int32 rows (rmin, rmax, cmin, cmax, area) in scan order
+    of roots, the true component count). Past ``max_ccs`` the table kernel
+    reports max_ccs, so the count is taken again at a capacity of one row a
+    run."""
     R = _capacity(H, W)
-    packed = cc.pack_bool(img)
     table, ok = cc.cc_table(packed, H, W, -1, max_ccs, R)
     ok = ok.tolist()
     if not ok[0]:
@@ -252,28 +266,37 @@ def get_bool(img_dev) -> np.ndarray:
 # fused preprocessing stages (pages stay on the device)
 # ---------------------------------------------------------------------------
 
+def preproc_stage1_packed(grey, thresh, despeckle_amt, sat_area_thresh,
+                          sat_by_area: bool = False, device=None):
+    """:func:`preproc_stage1` on the bit-packed page: (cleaned (H,
+    ceil(W/32)) int32 page, ok (1,) int32), both on the device and queued
+    without a host synchronisation (the caller checks ``ok``)."""
+    img = binarize(grey, thresh, device)
+    H, W = img.shape
+    return cc.cc_clean(cc.pack_bool(img), H, W, int(despeckle_amt),
+                       int(sat_area_thresh), sat_by_area, _capacity(H, W))
+
+
 def preproc_stage1(grey, thresh, despeckle_amt, sat_area_thresh,
                    sat_by_area: bool = False, device=None):
     """binarize -> despeckle(black) -> despeckle(white) -> remove tall CCs
     (textAlignPreprocessing.py:166-178): one cleanup chain on the
     bit-packed page. ``sat_by_area=True`` = the strict=False corrected
     area filter."""
-    img = binarize(grey, thresh, device)
-    H, W = img.shape
-    out, ok = cc.cc_clean(cc.pack_bool(img), H, W, int(despeckle_amt),
-                          int(sat_area_thresh), sat_by_area,
-                          _capacity(H, W))
+    out, ok = preproc_stage1_packed(grey, thresh, despeckle_amt,
+                                    sat_area_thresh, sat_by_area, device)
     _raise_unless(ok, "cc_clean")
-    return cc.unpack_bits(out, W)
+    return cc.unpack_bits(out, int(grey.shape[1]))
 
 
-def rotate_erode_project(img, cfix, sfix, H2, W2, filter_runs,
-                         filter_runs_amt, device=None):
-    """rotate -> run-filter erosion -> row projection
-    (textAlignPreprocessing.py:185-193, :211). Returns (packed binarized
-    page, packed eroded page, projection), all on the device."""
-    rot = _rotate_max_canvas(on_device(img, device), int(cfix), int(sfix),
-                             int(H2), int(W2), int(H2), int(W2))
+def rotate_erode_project_reference(packed, H: int, W: int, cfix, sfix, H2,
+                                   W2, filter_runs: int = 1,
+                                   filter_runs_amt: int = 2):
+    """The plain version of :func:`rotate_erode_project_packed`: the
+    rotation gather, the run-length erosion and the row sum in torch ops on
+    the page's device."""
+    rot = _rotate_max_canvas(cc.unpack_bits(packed, W), int(cfix),
+                             int(sfix), int(H2), int(W2), int(H2), int(W2))
     eroded = rot
     for _ in range(filter_runs):
         eroded = filter_runs_impl(eroded, filter_runs_amt, "black", 0)
@@ -282,10 +305,49 @@ def rotate_erode_project(img, cfix, sfix, H2, W2, filter_runs,
     return cc.pack_bool(rot), cc.pack_bool(eroded), proj
 
 
+def rotate_erode_project_packed(packed, H: int, W: int, cfix, sfix, H2, W2,
+                                filter_runs: int = 1,
+                                filter_runs_amt: int = 2):
+    """rotate -> run-filter erosion -> row projection of the bit-packed
+    (H, ceil(W/32)) int32 page ``packed`` onto the (H2, W2) canvas
+    (textAlignPreprocessing.py:185-193, :211). Returns (packed binarized
+    page, packed eroded page, projection (H2,) int32), all on the page's
+    device. On a CUDA tensor one k = 2 erosion (the pipeline's) is the
+    ``csrc/raster.cu`` kernel; any other erosion, and a CPU tensor, the
+    plain version."""
+    if packed.device.type == "cuda" and filter_runs == 1 \
+            and filter_runs_amt == 2:
+        return raster_kernel.rotate_erode_cuda(
+            packed.contiguous(), H, W, int(cfix), int(sfix), int(H2),
+            int(W2))
+    return rotate_erode_project_reference(packed, H, W, cfix, sfix, H2, W2,
+                                          filter_runs, filter_runs_amt)
+
+
+def rotate_erode_project(img, cfix, sfix, H2, W2, filter_runs,
+                         filter_runs_amt, device=None):
+    """:func:`rotate_erode_project_packed` of the bool page ``img``.
+    Returns (packed binarized page, packed eroded page, projection), all on
+    the device."""
+    img = on_device(img, device)
+    H, W = int(img.shape[0]), int(img.shape[1])
+    return rotate_erode_project_packed(cc.pack_bool(img), H, W, cfix, sfix,
+                                       H2, W2, filter_runs, filter_runs_amt)
+
+
 def erase_and_ccstats(eroded, row_mask, max_ccs: int = MAX_CCS,
                       device=None):
     """Separator erase + CC stats table: (table, true count)."""
     return _table(erase_rows(eroded, row_mask, device), max_ccs)
+
+
+def erase_and_ccstats_packed(packed, W: int, row_mask,
+                             max_ccs: int = MAX_CCS):
+    """:func:`erase_and_ccstats` of a bit-packed (H, ceil(W/32)) page on
+    its device: the separator rows are cleared on the words."""
+    H = int(packed.shape[0])
+    rows = on_device(np.flatnonzero(row_mask), packed.device)
+    return _table_packed(packed.index_fill(0, rows, 0), H, W, max_ccs)
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,22 @@ All engines produce identical pixels/strips:
 
 - ``backend="host"``  — numpy oracle ops (the CPU baseline path);
 - ``backend="hybrid"``— the native C++ raster engine (:mod:`..ops.
-  host_native`, union-find CC / run filters) with numpy for the rest; the
-  production default for the raster stage. Connected-component labeling is
-  branch-heavy integer chasing — a union-find in C++ runs the whole page in
-  ~10 ms, while the equivalent XLA program at page shape is a known
-  compile-time pathology on remote-compile TPU runtimes. The FLOP-heavy
-  stages (recognizer, NW) still run on TPU; see ``process()``.
+  host_native`, union-find CC / run filters) with numpy for the rest. The
+  JAX package made it the production default because connected-component
+  labelling at page shape is a compile-time pathology on remote-compile
+  TPU runtimes; on a CUDA card, where the port has CC kernels,
+  ``process()`` rasters a ``"hybrid"`` folio with ``"device"`` instead
+  (:func:`..pipeline.process.raster_backend`; bit-identical). These
+  functions, the batch's :func:`raster_stream` and a CPU device keep the
+  native engine for ``"hybrid"``.
 - ``backend="device"``— :mod:`..ops.device` on a torch device (the CC
-  kernels of ``csrc/cc_filter.cu`` and torch ops); page tensors stay on
-  the device across the stages, with only the histogram, the projections,
-  the compact CC tables and the bit-packed pages coming back to the host.
-  Its functions take ``device`` (None: the card).
+  kernels of ``csrc/cc_filter.cu``, the rotate + erode + project kernel of
+  ``csrc/raster.cu`` and torch ops); the page stays on the device, packed,
+  from the cleanup chain to the line finder's CC table
+  (:func:`preprocess_device_packed`, :class:`PackedPage`), with only the
+  histogram, the skew winners, the row projection, the compact CC tables
+  and the binarized page coming back to the host. Its functions take
+  ``device`` (None: the card).
 
 Projection smoothing, peak prominence, and all per-CC list logic are
 host-side float64/python on *all* paths (they are O(H) / O(#CCs)), so every
@@ -86,6 +91,22 @@ class LineStrip:
         return self.img.shape[1] - 1
 
 
+@dataclass
+class PackedPage:
+    """The eroded page of the device raster, kept on its device for the
+    line finder: ``words`` (H, ceil(width/32)) int32 little-endian bit rows
+    (bit b of word k is column 32 k + b), and its row projection ``proj``
+    (H,) on the host."""
+
+    words: object  # torch.Tensor
+    width: int
+    proj: np.ndarray
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return int(self.words.shape[0]), self.width
+
+
 def _raster_engine(backend: str):
     """Host raster op namespace for the given backend: the native C++
     engine for ``hybrid`` (falling back to the oracle when no toolchain is
@@ -127,11 +148,11 @@ def preprocess_images(input_image, despeckle_amt: int = DESPECKLE_AMT,
     if backend == "device":
         from ..ops import device as eng
 
-        image_bin, packed_eroded, angle = _preprocess_device(
+        image_bin, eroded, angle = preprocess_device_packed(
             input_image, despeckle_amt, filter_runs, filter_runs_amt,
             correct_rotation, p, device)
-        image_eroded = eng.unpack_bool(packed_eroded.cpu().numpy(),
-                                       image_bin.shape[1])
+        image_eroded = eng.unpack_bool(eroded.words.cpu().numpy(),
+                                       eroded.width)
         return image_bin, image_eroded, angle
 
     eng = _raster_engine(backend)
@@ -158,33 +179,66 @@ def preprocess_images(input_image, despeckle_amt: int = DESPECKLE_AMT,
     return img, eroded, angle
 
 
-def _preprocess_device(input_image, despeckle_amt, filter_runs,
-                       filter_runs_amt, correct_rotation, p, device):
-    """:func:`preprocess_images` on ``backend="device"``: (image_bin numpy,
-    the bit-packed eroded page still on the device, angle)."""
+def preprocess_device_packed(input_image, despeckle_amt: int = DESPECKLE_AMT,
+                             filter_runs: int = 1, filter_runs_amt: int = 2,
+                             correct_rotation: bool = True,
+                             params: PreprocParams | None = None,
+                             device=None):
+    """:func:`preprocess_images` on ``backend="device"`` with the eroded
+    page left on the device: (image_bin numpy, :class:`PackedPage`, angle).
+    One queued chain on ``device`` (None: the card): greyscale and
+    histogram, the cleanup chain, the skew search, then rotate + erode +
+    project on the packed page (:func:`..ops.device.
+    rotate_erode_project_packed`). The host reads the histogram (Otsu),
+    the skew winners with the chain's ``ok``, and in one wait the
+    binarized page, unpacked on the device, with the eroded page's row
+    projection (into pinned memory from a card)."""
+    import torch
+
+    from ..ops import cc
     from ..ops import device as eng
     from ..ops import fixedpoint as fxp
+    from ..ops import skew_device as sd
 
+    p = params or PreprocParams()
     # stage 0: greyscale + histogram on the device; Otsu on the host
     grey = eng.to_greyscale(input_image, device)
     thresh = eng._otsu_from_hist(
         eng.grey_histogram(grey, grey.device).cpu().numpy())
 
-    # stage 1: binarize + despeckle x2 + tall/big-CC removal
-    img = eng.preproc_stage1(grey, thresh, despeckle_amt, p.sat_area_thresh,
-                             sat_by_area=p.sat_filter_area,
-                             device=grey.device)
-    angle = eng.rotation_angle_projections(img, -6, 6, img.device)
+    # stage 1: binarize + despeckle x2 + tall/big-CC removal, packed
+    H, W = int(grey.shape[0]), int(grey.shape[1])
+    cleaned, ok = eng.preproc_stage1_packed(
+        grey, thresh, despeckle_amt, p.sat_area_thresh,
+        sat_by_area=p.sat_filter_area, device=grey.device)
+    # the skew winners and the chain's ok in one read
+    idx = sd.search(cc.unpack_bits(cleaned, W), -6, 6)
+    *idx, ok = torch.cat([idx, ok.to(idx.dtype)]).tolist()
+    eng._raise_unless([ok], "cc_clean")
+    angle = sd.angle_from_indices(*idx, -6, 6)
 
-    H, W = int(img.shape[0]), int(img.shape[1])
     if correct_rotation:
         H2, W2 = fxp.rotated_canvas(H, W, angle)
         cfix, sfix = fxp.rotation_coeffs(angle)
     else:
         H2, W2, cfix, sfix = H, W, fxp.SCALE, 0
-    packed_bin, packed_eroded, _proj = eng.rotate_erode_project(
-        img, cfix, sfix, H2, W2, filter_runs, filter_runs_amt, img.device)
-    return eng.unpack_bool(packed_bin.cpu().numpy(), W2), packed_eroded, angle
+    packed_bin, packed_eroded, proj = eng.rotate_erode_project_packed(
+        cleaned, H, W, cfix, sfix, H2, W2, filter_runs, filter_runs_amt)
+    # the binarized page leaves unpacked, into pinned memory: a host unpack
+    # writes a fresh page-sized array a folio (page faults), while the
+    # caching host allocator hands the same pinned blocks back folio after
+    # folio
+    bits = cc.unpack_bits(packed_bin, W2)
+    if bits.is_cuda:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (bits, proj)]
+        for h, t in zip(host, (bits, proj)):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(bits.device).synchronize()
+    else:
+        host = [bits, proj]
+    image_bin, proj = (h.numpy() for h in host)
+    return image_bin, PackedPage(packed_eroded, W2, proj), angle
 
 
 def preprocess_stream(images, backend: str = "host",
@@ -305,13 +359,11 @@ def raster_stream(images, backend: str = "host",
         fused = hn.available()
     if not fused:
         if backend == "device":
-            # the eroded page stays on the device for identify_text_lines
-            from ..ops import cc
-
-            stream = ((b, cc.unpack_bits(e, b.shape[1]), a)
-                      for b, e, a in (_preprocess_device(
-                          raw, despeckle_amt, 1, 2, True, p, device)
-                          for raw in images))
+            # the eroded page stays packed on the device for
+            # identify_text_lines
+            stream = (preprocess_device_packed(raw, despeckle_amt,
+                                               params=p, device=device)
+                      for raw in images)
         else:
             stream = preprocess_stream(images, backend=backend,
                                        despeckle_amt=despeckle_amt,
@@ -422,7 +474,9 @@ def identify_text_lines(image_bin, image_eroded, backend: str = "host",
     """
     p = params or PreprocParams()
 
-    if backend == "device":
+    if isinstance(image_eroded, PackedPage):
+        project = image_eroded.proj
+    elif backend == "device":
         from ..ops import device as eng
 
         # one upload; a page already on the device stays where it is
@@ -465,13 +519,16 @@ def identify_text_lines_runs(image_bin, eroded_runs, n_eruns, proj,
 def _sep_masked_cc_table(image_eroded, sep_rows, backend, device=None):
     """CC table of the eroded page with 2-px separator rows erased
     (textAlignPreprocessing.py:217-235), per backend."""
-    if backend == "device":
+    if isinstance(image_eroded, PackedPage) or backend == "device":
         from ..ops import device as eng
 
         H = int(image_eroded.shape[0])
         mask = np.zeros(H, dtype=bool)
         for idx in sep_rows:
             mask[idx : idx + 2] = True
+        if isinstance(image_eroded, PackedPage):
+            return _device_table(*eng.erase_and_ccstats_packed(
+                image_eroded.words, image_eroded.width, mask))
         return _device_table(*eng.erase_and_ccstats(
             image_eroded, mask, device=device))
     eng = _raster_engine(backend)

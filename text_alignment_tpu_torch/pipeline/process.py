@@ -9,9 +9,13 @@ line spacing quirk.
 
 Stages:
 - raster and line segmentation: :mod:`.preprocess`, the port's copy of the
-  JAX package's code: the native C++ engine on ``backend="hybrid"``, the
-  numpy oracle on "host", and on "device" :mod:`..ops.device` on
-  ``device`` (the CC kernels and torch ops);
+  JAX package's code: the numpy oracle on "host", and on "device"
+  :mod:`..ops.device` on ``device`` (the CC kernels, the rotate + erode +
+  project kernel and torch ops), the eroded page staying packed on the
+  device for the line finder; ``backend="hybrid"`` takes the device
+  raster on a CUDA card and the native C++ engine on a CPU device
+  (:func:`raster_backend`; the pages are bit-identical), and a
+  ``ta.raster.card`` span marks a folio rastered on the card;
 - OCR: the port's :class:`..models.recognizer.SeqRecognizer` on ``device``,
   normalizing lines on the device when that device is a CUDA card;
 - NW alignment: the port's ``perform_alignment``. ``backend="hybrid"``
@@ -32,6 +36,7 @@ miss here and is never unpickled.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -42,7 +47,7 @@ from ..models.lineest import center_route
 from ..models.lstm import pin_float32
 from ..utils.cache import StageCache, content_key
 from ..utils.ref_pickle import load_charboxes
-from ..utils.timing import stage_timer
+from ..utils.timing import span, stage_timer
 from .assemble import (
     expand_abbreviations,
     group_syllables,
@@ -53,6 +58,7 @@ from .preprocess import (
     SAT_AREA_THRESH_AREA,
     PreprocParams,
     identify_text_lines,
+    preprocess_device_packed,
     preprocess_images,
 )
 
@@ -77,6 +83,18 @@ def _normalizes_on_device(ocropus_model, backend, device) -> bool:
     if isinstance(ocropus_model, str):
         return backend in ("hybrid", "device") and device.type == "cuda"
     return bool(getattr(ocropus_model, "normalize_on_device", False))
+
+
+def raster_backend(backend, device) -> str:
+    """The raster engine of ``process()``'s preprocess and line finding
+    for ``backend`` on ``device``. On a CUDA card ``"hybrid"`` rasters on
+    the card, as ``"device"`` does (:mod:`..ops.device`, bit-identical to
+    the native engine), by the rule that :func:`_normalizes_on_device`
+    applies to the normalizer; a CPU device keeps the native engine, and
+    ``"host"`` and ``"device"`` are their own."""
+    if backend == "hybrid" and device.type == "cuda":
+        return "device"
+    return backend
 
 
 def _resolve_recognizer(ocropus_model, backend, device):
@@ -138,10 +156,11 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     ``.pyrnn(.gz)`` path (loaded onto ``device``) or a ready
     ``SeqRecognizer``. ``device``: torch device of the OCR stage, of the
     device raster and of the device NW fill (None: the card; it raises
-    when there is none). ``backend``: "hybrid" (native C++ raster, NW
-    routed "auto"), "device" (the raster of :mod:`..ops.device` and NW on
-    ``device``) or "host" (numpy raster, host NW fill); another name
-    raises ``ValueError``. ``strict=False`` fixes the documented reference
+    when there is none). ``backend``: "hybrid" (the raster of
+    :mod:`..ops.device` on a CUDA card, the native C++ raster on a CPU
+    device; NW routed "auto"), "device" (the raster of :mod:`..ops.device`
+    and NW on ``device``) or "host" (numpy raster, host NW fill); another
+    name raises ``ValueError``. ``strict=False`` fixes the documented reference
     defects (stage-1 CC area filter, NW boundary extends).
     ``median_line_mult``, ``wkdir_name`` and ``parallel`` are accepted and
     inert, as in the reference. ``stage_cache``: a
@@ -167,30 +186,39 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         preproc_params = replace(pp, sat_filter_area=True)
 
     # -- PRE-PROCESSING --
-    if existing_preproc_images is not None:
-        image, eroded, angle = existing_preproc_images
-    else:
-        with timer("preprocess"):
-            def _run_preproc():
-                return preprocess_images(raw_image, backend=backend,
-                                         params=preproc_params,
-                                         device=device)
+    raster = raster_backend(backend, device)
+    on_card = raster == "device" and device.type == "cuda" and (
+        existing_preproc_images is None or existing_lines is None)
+    with span("ta.raster.card") if on_card else contextlib.nullcontext():
+        if existing_preproc_images is not None:
+            image, eroded, angle = existing_preproc_images
+        else:
+            with timer("preprocess"):
+                def _run_preproc():
+                    return preprocess_images(raw_image, backend=raster,
+                                             params=preproc_params,
+                                             device=device)
 
-            if stage_cache is not None:
-                image, eroded, angle = stage_cache.cached(
-                    "preproc",
-                    content_key(CACHE_NAMESPACE, "preproc", raw_image,
-                                repr(preproc_params), backend),
-                    _run_preproc)
-            else:
-                image, eroded, angle = _run_preproc()
-    if existing_lines is not None:
-        cc_strips, lines_peak_locs = existing_lines
-    else:
-        with timer("identify_lines"):
-            cc_strips, lines_peak_locs, _ = identify_text_lines(
-                image, eroded, backend=backend, verbose=verbose,
-                params=preproc_params, device=device)
+                if stage_cache is not None:
+                    image, eroded, angle = stage_cache.cached(
+                        "preproc",
+                        content_key(CACHE_NAMESPACE, "preproc", raw_image,
+                                    repr(preproc_params), backend),
+                        _run_preproc)
+                elif raster == "device":
+                    # the eroded page stays packed on the device for the
+                    # line finder
+                    image, eroded, angle = preprocess_device_packed(
+                        raw_image, params=preproc_params, device=device)
+                else:
+                    image, eroded, angle = _run_preproc()
+        if existing_lines is not None:
+            cc_strips, lines_peak_locs = existing_lines
+        else:
+            with timer("identify_lines"):
+                cc_strips, lines_peak_locs, _ = identify_text_lines(
+                    image, eroded, backend=raster, verbose=verbose,
+                    params=preproc_params, device=device)
 
     # -- OCR --
     all_chars = []
