@@ -81,11 +81,9 @@ def check(code: int, what: str) -> None:
 def cc_line(libs: dict, dev) -> None:
     import chip_smoke as cs
     from text_alignment_tpu_torch.ops import cc
-    from text_alignment_tpu_torch.pipeline import device_raster
     from text_alignment_tpu_torch.pipeline.preprocess import PreprocParams
 
-    packed, (H, W) = device_raster._binarize_pack(
-        cs.make_batch_folio(3000).image)
+    packed, (H, W) = cs.binarize_pack(cs.make_batch_folio(3000).image)
     page = torch.from_numpy(packed).to(dev)
     Wq = page.shape[1]
     out = torch.empty_like(page)

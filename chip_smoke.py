@@ -70,16 +70,14 @@ Phases, each printing one line (any failure exits non-zero):
   12. the skew search on the card against the host oracle's angle on the
      folio and two rotated copies; ms per page;
   13. process_batch on 8 full-size folios (2000 x 1600 px, 11 lines of
-     three words) with the phase-5 model on the card, (a) in the default
-     mode (host raster, skew search on the card) and (b) with
-     TEXT_ALIGNMENT_TPU_RASTER=device (the raster on the card through
-     cc_clean and cc_table): every folio's JSON byte-identical to
-     the sequential process() on the card; in (b) no host fallback and
-     cc_clean and cc_table launched >= 8 times each; one more page with a
-     lowered run capacity falls back and keeps its JSON; ms per folio of
-     (a), (b) and the sequential calls, with the stage split and the time
-     in Python's garbage collector; one more (b) call under torch.profiler:
-     its device-busy share and longest idle gaps;
+     three words) with the phase-5 model on the card, with
+     backend="device" and backend="hybrid" (both raster on the card
+     through ops/device.py's chain): every folio's JSON byte-identical to
+     the sequential process() on the card; cc_clean, cc_table and
+     raster_rotate_erode launched >= 8 times in each; ms per folio of
+     both and of the sequential calls, with the stage split and the time
+     in Python's garbage collector; one more hybrid call under
+     torch.profiler: its device-busy share and longest idle gaps;
   14. the full-chain normalizer kernel (lineest_full) against its plain
      version on the card, bit for bit (center, dsum, dcnt), on the phase-5
      folio's packed strips and on >= 64 strips of nine 1600 x 1300 pages
@@ -169,12 +167,9 @@ Phases, each printing one line (any failure exits non-zero):
      packed stage-1 page at its detected angle and seeded ones, bit for
      bit its plain version (on the CPU) and the native rotate + erode
      and projection, its ms beside its bound and the plain chain's ms on
-     the card; phase 13's 8 folios
-     through process_batch(backend="device") give phase 13's JSON, ms per
-     folio beside phase 13's modes; rodan_job.run_task with its default
-     backend on the folio gives process()'s JSON; the 499 x 40 px
-     serpentine is one component on the card (the JAX device labeling
-     counts 59).
+     the card; rodan_job.run_task with its default backend on the folio
+     gives process()'s JSON; the 499 x 40 px serpentine is one component
+     on the card (the JAX device labeling counts 59).
   22. the port's bench, python -m text_alignment_tpu_torch.bench --out
      DIR, in a child process on the card (BENCH_ARGS): it exits 0, its last
      line is the folios/sec headline, DIR/bench_last.json holds the 13
@@ -202,9 +197,9 @@ The phases run one at a time: 1-17, 21, 22, 23, then 18-20. Each group of
 phases prints its wall and the script's so far ("wall:").
 Then one JSON line with each kernel's launches (from its own path's run:
 the folio for lstm_scan and lineest_tail, phase 10 for nw_fill and
-nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13 (b) for the CC
-kernels, phase 16's one-at-a-time drain for lineest_full, phase 21's
-backend="hybrid" calls for raster_rotate_erode, phase 23's
+nw_traceback, the 2400^2 grid for nw_fill_batched, phase 13's hybrid run
+for the CC kernels, phase 16's one-at-a-time drain for lineest_full,
+phase 21's backend="hybrid" calls for raster_rotate_erode, phase 23's
 measured calls for lstm_scan.kraken and lineest_tail.kraken), error, times
 and bound (nw_fill_batched's at one 2400^2 grid launch, the shape its
 launches have, with its chain floor beside; lstm_scan.kraken's at the
@@ -214,7 +209,8 @@ seeds. Needs no network and no JAX.
 
 With --profile it runs phases 1 and 2, then only the launch profiles of
 the CC kernels (phase 11's pages), the default tail and the full chain
-(the folio's strips of phases 4 and 14) and the device timeline of one process_batch call in mode (b)
+(the folio's strips of phases 4 and 14) and the device timeline of one
+process_batch(backend="hybrid") call
 (with its garbage-collector time), and prints last one JSON line of the
 launch counts; it needs only the package's entry points, so it profiles
 an older tree of the port from a copy placed in that tree.
@@ -271,10 +267,8 @@ from text_alignment_tpu_torch.models.train import (
 from text_alignment_tpu_torch.ops import cc, host_native, oracle
 from text_alignment_tpu_torch.ops import device as dv
 from text_alignment_tpu_torch.ops import fixedpoint as fxp
-from text_alignment_tpu_torch.ops import raster_device as rd
 from text_alignment_tpu_torch.ops import skew_device as sd
 from text_alignment_tpu_torch.parallel import process_batch
-from text_alignment_tpu_torch.pipeline import device_raster
 from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
 from text_alignment_tpu_torch.pipeline.preprocess import (
     PackedPage, PreprocParams, _peaks_and_separators, identify_text_lines,
@@ -376,10 +370,17 @@ def make_folio(seed: int = 2024, words_per_line: int = 4):
 
 def make_batch_folio(seed: int):
     """A folio of the batch: the phase-5 folio's geometry with three words
-    a line, ~41k black and ~43k white runs, inside the CC kernels' 45,056
-    (a real text page has ~39k and ~41k); the four-word folio has ~49k
-    and ~51k, so its device raster always takes the host fallback."""
+    a line, ~41k black and ~43k white runs, inside the CC kernels' default
+    capacity of 45,056 (a real text page has ~39k and ~41k); the four-word
+    folio has ~49k and ~51k."""
     return make_folio(seed, words_per_line=3)
+
+
+def binarize_pack(image):
+    """The page binarized on the host (greyscale, Otsu) and bit-packed:
+    ((H, ceil(W/32)) int32 words, (H, W))."""
+    binar = oracle.to_onebit(image)
+    return cc.pack_page(binar), binar.shape
 
 
 def phase_card():
@@ -1363,23 +1364,25 @@ def cc_ops(H: int, Wq: int, n_runs: int) -> int:
 
 
 def masked_eroded(dev, pk, H: int, W: int):
-    """A binarized packed page through program A (the cleanup chain, the
-    skew search, the rotation and the erosion), its separator rows masked
-    out as program B masks them: (eroded bool page, its packed words, the
-    separator count). cc_table's input on the batch path."""
+    """A binarized packed page through the card raster's chain (the
+    cleanup chain, the skew search, rotate + erode + project), its
+    separator rows cleared as the line finder clears them: (eroded bool
+    page, its packed words, the separator count). cc_table's input on the
+    main path."""
     p = PreprocParams()
-    _, eroded, wire = rd.raster_program_a(pk, H, W, p.despeckle_amt,
-                                          p.sat_area_thresh)
-    wire = wire.cpu().numpy()
-    angle = sd.angle_from_indices(*wire[-4:-1].tolist())
-    H2, _ = rd.exact_canvas(H, W, angle)
-    _, sep_rows, _ = _peaks_and_separators(wire[:-4][:H2].astype(np.int64),
-                                           p)
-    mask = torch.zeros(eroded.shape[0], dtype=torch.bool, device=dev)
-    for r in sep_rows:
-        mask[r: r + 2] = True
-    er = eroded & ~mask[:, None]
-    return er, rd.pack_bool(er), len(sep_rows)
+    cleaned, ok = cc.cc_clean(pk, H, W, p.despeckle_amt, p.sat_area_thresh,
+                              False, dv._capacity(H, W))
+    check(int(ok[0]) == 1, "cc_clean overflowed the page's capacity")
+    angle = dv.rotation_angle_projections(cc.unpack_bits(cleaned, W),
+                                          device=dev)
+    H2, W2 = fxp.rotated_canvas(H, W, angle)
+    _, eroded, proj = dv.rotate_erode_project_packed(
+        cleaned, H, W, *fxp.rotation_coeffs(angle), H2, W2)
+    _, sep_rows, _ = _peaks_and_separators(
+        proj.cpu().numpy().astype(np.int64), p)
+    rows = sorted({r + d for r in sep_rows for d in (0, 1) if r + d < H2})
+    pke = eroded.index_fill(0, torch.tensor(rows, device=dev), 0)
+    return cc.unpack_bits(pke, W2), pke, len(sep_rows)
 
 
 def device_events(fn, repeat: int = 3):
@@ -1513,7 +1516,7 @@ def profile_cc(pk, H: int, W: int, pke, He: int, We: int) -> dict:
             "cc_clean": launch_split("cc_clean", lambda: cc.cc_clean(
                 pk, H, W, damt, sat)),
             "cc_table": launch_split("cc_table", lambda: cc.cc_table(
-                pke, He, We, thr, device_raster._MAX_CCS))}
+                pke, He, We, thr, dv.MAX_CCS))}
 
 
 def phase_cc(dev, page, big_page):
@@ -1523,7 +1526,7 @@ def phase_cc(dev, page, big_page):
     folio, whose black runs overflow the run capacity: kernel and plain
     version report the same overflow and paint the same page."""
     p = PreprocParams()
-    packed, (H, W) = device_raster._binarize_pack(big_page.image)
+    packed, (H, W) = binarize_pack(big_page.image)
     pk = torch.from_numpy(packed).to(dev)
     for mode in (cc.MODE_BLACK, cc.MODE_WHITE):
         got, ok = cc.cc_filter(pk, H, W, p.despeckle_amt, mode)
@@ -1534,7 +1537,7 @@ def phase_cc(dev, page, big_page):
               f"overflowing page")
         print(f"cc_filter: phase-5 folio mode {mode}: ok {ok.tolist()} "
               f"(capacity {cc.MAX_RUNS}), equal to the plain version")
-    packed, (H, W) = device_raster._binarize_pack(page.image)
+    packed, (H, W) = binarize_pack(page.image)
     binar = cc.unpack_page(packed, H, W)
     pk = torch.from_numpy(packed).to(dev)
     Wq = pk.shape[1]
@@ -1582,9 +1585,9 @@ def phase_cc(dev, page, big_page):
     er, pke, n_seps = masked_eroded(dev, pk, H, W)
     He, We = er.shape
     thr = p.noise_area_thresh
-    tab, okt = cc.cc_table(pke, He, We, thr, device_raster._MAX_CCS)
+    tab, okt = cc.cc_table(pke, He, We, thr, dv.MAX_CCS)
     tab_ref, okt_ref = cc.table_reference(pke, He, We, thr,
-                                          device_raster._MAX_CCS,
+                                          dv.MAX_CCS,
                                           cc.TABLE_MAX_RUNS)
     _, want_t = oracle.cc_stats(er.cpu().numpy())
     want_t = want_t[want_t[:, 4] > thr]
@@ -1595,9 +1598,9 @@ def phase_cc(dev, page, big_page):
         tab[:count].cpu().numpy(), want_t), "cc_table differs from the "
           "oracle's cc_stats")
     t_ms = median_ms(lambda: cc.cc_table(pke, He, We, thr,
-                                         device_raster._MAX_CCS))
+                                         dv.MAX_CCS))
     _, t_plain = timed_once(lambda: cc.table_reference(
-        pke, He, We, thr, device_raster._MAX_CCS, cc.TABLE_MAX_RUNS))
+        pke, He, We, thr, dv.MAX_CCS, cc.TABLE_MAX_RUNS))
     n_er = cc._runs(pke, He, We, False, cc.TABLE_MAX_RUNS)[3]
     print(f"cc_clean: chain despeckle {damt} / white {damt} / tall {sat} "
           f"identical to the plain version and the oracle; kernel "
@@ -1619,7 +1622,7 @@ def phase_cc(dev, page, big_page):
                              3 * cc_ops(H, Wq, n_runs[cc.MODE_BLACK])),
                      "library_ms": None},
         "cc_table": {"max_abs_err": 0.0, "ms": t_ms, "plain_ms": t_plain,
-                     **bound(4 * pke.numel() + 20 * device_raster._MAX_CCS
+                     **bound(4 * pke.numel() + 20 * dv.MAX_CCS
                              + 8, cc_ops(He, pke.shape[1], n_er)),
                      "library_ms": None},
     }
@@ -1628,12 +1631,12 @@ def phase_cc(dev, page, big_page):
 def phase_skew(dev, page):
     """Phase 12: the skew search on the card against the host oracle on
     the folio and on two rotated copies."""
-    packed, (H, W) = device_raster._binarize_pack(page.image)
+    packed, (H, W) = binarize_pack(page.image)
     binar = cc.unpack_page(packed, H, W)
     line = []
     for angle in (None, 1.37, -2.6):
         img = oracle.rotate_onebit(binar, angle) if angle else binar
-        got = sd.rotation_angle_projections(img.astype(np.uint8), device=dev)
+        got = dv.rotation_angle_projections(img, device=dev)
         want = oracle.rotation_angle_projections(img, -6, 6)
         check(got == want, f"skew search on the card {got} != oracle {want}")
         t = torch.from_numpy(img).to(dev)
@@ -1654,9 +1657,9 @@ def per_folio(timer, n):
 
 def phase_batch(path, dev):
     """Phase 13: process_batch on N_FOLIOS full-size folios on the card,
-    in both raster modes, against the sequential process(). Returns the
-    launches of the device-raster run, the pages, their JSON and each
-    mode's ms a folio."""
+    with backend="device" and "hybrid" (both rastering on the card),
+    against the sequential process(). Returns the launches of the hybrid
+    run, the pages, their JSON and each backend's ms a folio."""
     pages = [make_batch_folio(3000 + k) for k in range(N_FOLIOS)]
     folios = [(pg.image, pg.transcript) for pg in pages]
     seq, seq_timer = [], stage_timer(enabled=True)
@@ -1669,57 +1672,30 @@ def phase_batch(path, dev):
     seq_ms = (time.perf_counter() - t0) * 1e3 / N_FOLIOS
     check(any(j is not None for j in seq), "no folio produced OCR")
     rec = _resolve_recognizer(path, "hybrid", dev)
-    launches = None
-    mode_ms = {}
-    env = os.environ.get("TEXT_ALIGNMENT_TPU_RASTER")
-    try:
-        for mode in ("host", "device"):
-            os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = mode
-            process_batch(folios[:2], rec, backend="hybrid", device=dev)
-            fb = device_raster.fallbacks
-            timer = stage_timer(enabled=True)
-            _kernels.reset_launches()
-            with GCWatch() as gcw:
-                res, ms = wall_ms(lambda: process_batch(
-                    folios, rec, backend="hybrid", timer=timer, device=dev))
-            run_launches = dict(_kernels.launches)
-            mode_ms[mode] = ms / N_FOLIOS
-            same = batch_json(res) == seq
-            print(f"batch ({'a' if mode == 'host' else 'b'}) raster {mode}: "
-                  f"{N_FOLIOS} folios {ms / N_FOLIOS:.1f} ms per folio, "
-                  f"stages ms per folio {per_folio(timer, N_FOLIOS)}; "
-                  f"sequential process() {seq_ms:.1f} ms per folio, "
-                  f"stages {per_folio(seq_timer, N_FOLIOS)}; JSON "
-                  f"identical {same}; fallbacks "
-                  f"{device_raster.fallbacks - fb}; launches {run_launches}; "
-                  f"{gcw}")
-            check(same, f"process_batch (raster {mode}) differs from the "
-                  f"sequential process()")
-            if mode == "device":
-                check(device_raster.fallbacks == fb,
-                      "the device raster fell back to the host")
-                for name in ("cc_clean", "cc_table"):
-                    check(run_launches[name] >= N_FOLIOS,
-                          f"{name} launched {run_launches[name]} times")
-                launches = run_launches
-                idle_gaps("batch (b)", lambda: process_batch(
-                    folios, rec, backend="hybrid", device=dev))
-        # one more page on a lowered run capacity: it must fall back
-        saved, fb = cc.MAX_RUNS, device_raster.fallbacks
-        cc.MAX_RUNS = 5000
-        try:
-            res = process_batch(folios[:1], rec, backend="hybrid",
-                                device=dev)
-        finally:
-            cc.MAX_RUNS = saved
-        fell = device_raster.fallbacks - fb
-        print(f"batch (b) at a run capacity of 5000: fallbacks {fell}, JSON "
-              f"identical {batch_json(res) == seq[:1]}")
-        check(fell == 1 and batch_json(res) == seq[:1],
-              "the overflowing page did not fall back to an identical JSON")
-    finally:
-        restore_env("TEXT_ALIGNMENT_TPU_RASTER", env)
-    return launches, pages, seq, mode_ms
+    batch_ms = {}
+    for backend in ("device", "hybrid"):
+        process_batch(folios[:2], rec, backend=backend, device=dev)
+        timer = stage_timer(enabled=True)
+        _kernels.reset_launches()
+        with GCWatch() as gcw:
+            res, ms = wall_ms(lambda: process_batch(
+                folios, rec, backend=backend, timer=timer, device=dev))
+        launches = dict(_kernels.launches)
+        batch_ms[backend] = ms / N_FOLIOS
+        same = batch_json(res) == seq
+        print(f"batch {backend}: {N_FOLIOS} folios {ms / N_FOLIOS:.1f} ms "
+              f"per folio, stages ms per folio {per_folio(timer, N_FOLIOS)};"
+              f" sequential process() {seq_ms:.1f} ms per folio, stages "
+              f"{per_folio(seq_timer, N_FOLIOS)}; JSON identical {same}; "
+              f"launches {launches}; {gcw}")
+        check(same, f"process_batch(backend={backend!r}) differs from the "
+              f"sequential process()")
+        for name in ("cc_clean", "cc_table", "raster_rotate_erode"):
+            check(launches[name] >= N_FOLIOS,
+                  f"{name} launched {launches[name]} times")
+    idle_gaps("batch hybrid", lambda: process_batch(
+        folios, rec, backend="hybrid", device=dev))
+    return launches, pages, seq, batch_ms
 
 
 def full_inputs(packed_meta, dev):
@@ -1982,11 +1958,11 @@ def phase_serve(pages, path, dev, workdir):
 def profile_only(dev) -> int:
     """``--profile``: the device time of each launch of the CC kernels
     (phase 11's pages) and of the full chain (phase 14's folio strips), and
-    the device timeline of one process_batch call in mode (b) (phase 13's
-    folios), with no other phase before them. Runs against any tree whose
+    the device timeline of one process_batch(backend="hybrid") call (phase
+    13's folios), with no other phase before them. Runs against any tree whose
     package has the same entry points."""
     big = make_batch_folio(3000)
-    packed, (H, W) = device_raster._binarize_pack(big.image)
+    packed, (H, W) = binarize_pack(big.image)
     pk = torch.from_numpy(packed).to(dev)
     er, pke, _ = masked_eroded(dev, pk, H, W)
     launches = profile_cc(pk, H, W, pke, *er.shape)
@@ -2011,18 +1987,13 @@ def profile_only(dev) -> int:
         folios = [(pg.image, pg.transcript) for pg in
                   (make_batch_folio(3000 + k) for k in range(N_FOLIOS))]
         brec = _resolve_recognizer(path, "hybrid", dev)
-        env = os.environ.get("TEXT_ALIGNMENT_TPU_RASTER")
-        os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = "device"
-        try:
-            process_batch(folios[:2], brec, backend="hybrid", device=dev)
-            with GCWatch() as gcw:
-                _, ms = wall_ms(lambda: process_batch(
-                    folios, brec, backend="hybrid", device=dev))
-            print(f"batch (b) alone: {ms / N_FOLIOS:.1f} ms per folio; {gcw}")
-            idle_gaps("batch (b) alone", lambda: process_batch(
+        process_batch(folios[:2], brec, backend="hybrid", device=dev)
+        with GCWatch() as gcw:
+            _, ms = wall_ms(lambda: process_batch(
                 folios, brec, backend="hybrid", device=dev))
-        finally:
-            restore_env("TEXT_ALIGNMENT_TPU_RASTER", env)
+        print(f"batch hybrid alone: {ms / N_FOLIOS:.1f} ms per folio; {gcw}")
+        idle_gaps("batch hybrid alone", lambda: process_batch(
+            folios, brec, backend="hybrid", device=dev))
     print(json.dumps({"profile_launches": launches}))
     return 0
 
@@ -2040,7 +2011,8 @@ def phase_profile():
         cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = child.stdout.splitlines()
     for line in lines:
-        if line.startswith(("launch split", "device timeline", "batch (b)")):
+        if line.startswith(("launch split", "device timeline",
+                            "batch hybrid")):
             print(f"profile: {line}")
     check(child.returncode == 0 and lines and
           lines[-1].startswith('{"profile_launches"'),
@@ -2465,7 +2437,8 @@ def phase_mesh(dev, card, path, page, pages, seq, batch_ms, grids,
     check_run("(a)", a, a["demo_loss"])
     print(f"mesh (a) one NCCL rank on cuda:0 (card {card}): process_batch "
           f"of {N_FOLIOS} folios {a['batch_ms']:.1f} ms a folio (phase 13: "
-          f"(a) {batch_ms['host']:.1f}, (b) {batch_ms['device']:.1f}), JSON "
+          f"device {batch_ms['device']:.1f}, hybrid "
+          f"{batch_ms['hybrid']:.1f}), JSON "
           f"identical to phase 13's; grids equal to phase 9's, "
           f"{grid_text(a)}; shares {a['shares']}; launches "
           f"{a['launches']}; demo loss "
@@ -2496,8 +2469,9 @@ def phase_mesh(dev, card, path, page, pages, seq, batch_ms, grids,
     print(f"mesh (b) {MESH_WORLD} gloo ranks sharing cuda:0 (card {card}; "
           f"two ranks on one card test the partition and the collectives, "
           f"not scaling): process_batch {b['batch_ms']:.1f} / "
-          f"{outs[1]['batch_ms']:.1f} ms a folio (phase 13: (a) "
-          f"{batch_ms['host']:.1f}, (b) {batch_ms['device']:.1f}; mesh (a) "
+          f"{outs[1]['batch_ms']:.1f} ms a folio (phase 13: device "
+          f"{batch_ms['device']:.1f}, hybrid {batch_ms['hybrid']:.1f}; mesh "
+          f"(a) "
           f"{a['batch_ms']:.1f}), JSON identical to phase 13's in every "
           f"rank; grids equal to phase 9's, rank 0: {grid_text(b)}; rank "
           f"1: {grid_text(outs[1])}; work shares "
@@ -2765,11 +2739,11 @@ def phase_raster_kernel(image, dev, seed: int = 21) -> dict:
             "library_ms": None}
 
 
-def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
+def phase_device_backend(dev, card, path, page):
     """Phase 21: backend="device" (ops/device.py: the raster on the card
     through cc_clean and cc_table, NW always on the card) through
-    process(), process_batch and the Rodan job, against the hybrid route
-    and the CPU, and the serpentine page."""
+    process() and the Rodan job, against the hybrid route and the CPU,
+    and the serpentine page."""
     from text_alignment_tpu_torch import rodan_job
     from text_alignment_tpu_torch.ops import device as dv
     from text_alignment_tpu_torch.pipeline.preprocess import _cc_table
@@ -2814,20 +2788,6 @@ def phase_device_backend(dev, card, path, page, pages, seq, batch_ms):
     for name in DEVICE_KERNELS:
         check(launches[name] >= 1, f"kernel {name} was not launched by "
               "process(backend='device')")
-
-    rec = _resolve_recognizer(path, "device", dev)
-    folios = [(pg.image, pg.transcript) for pg in pages]
-    process_batch(folios[:2], rec, device=dev)  # warm-up
-    timer = stage_timer(enabled=True)
-    res, b_ms = wall_ms(lambda: process_batch(folios, rec, timer=timer,
-                                              device=dev))
-    same = batch_json(res) == seq
-    print(f"device backend: process_batch(backend=\"device\") "
-          f"{b_ms / len(folios):.1f} ms per folio, stages ms per folio "
-          f"{per_folio(timer, len(folios))}; phase 13 (b) "
-          f"{batch_ms['device']:.1f}, (a) {batch_ms['host']:.1f}; JSON "
-          f"identical to phase 13 {same} ({card})")
-    check(same, "process_batch(backend='device') differs from phase 13")
 
     with tempfile.TemporaryDirectory() as tmp:
         from PIL import Image
@@ -2994,8 +2954,7 @@ def main(argv) -> int:
     phase_profile()
     walls.lap("17")
     stats["raster_rotate_erode"], launches["raster_rotate_erode"] = \
-        phase_device_backend(dev, card, path, page, batch_pages, batch_seq,
-                             batch_ms)
+        phase_device_backend(dev, card, path, page)
     walls.lap("21")
     phase_bench(card)
     walls.lap("22")

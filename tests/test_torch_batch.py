@@ -2,9 +2,9 @@
 the JAX package's, on tests/test_device_raster_pipeline.py's six 500 x 460
 pages, with the same weights carried across (``params_from_jax``): the JSON
 dumps (sort_keys) and the all_chars streams are byte-identical, with the
-raster on the device (``TEXT_ALIGNMENT_TPU_RASTER=device``, the CC kernels'
-plain versions here) and on the host (strip or page feed), with a run
-capacity low enough that every page takes the host fallback, and with
+raster on the device (``backend="device"``, ``ops/device.py`` with the CC
+kernels' plain versions here) and on the native host engine
+(``"hybrid"`` on the CPU, pipelined or on a thread pool), and with
 injected OCR. The batched CLI writes the sequential CLI's files.
 
 The port's device normalizer smooths its argmax row in float64 (scipy's
@@ -34,9 +34,7 @@ from text_alignment_tpu_torch.models import recognizer
 from text_alignment_tpu_torch.models.lstm import init_params_np
 from text_alignment_tpu_torch.models.lstm import params_from_jax
 from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
-from text_alignment_tpu_torch.ops import cc
 from text_alignment_tpu_torch.parallel import process_batch
-from text_alignment_tpu_torch.pipeline import device_raster
 
 torch.set_num_threads(1)
 
@@ -95,53 +93,21 @@ def _assert_identical(got, ref):
             [(c.char, c.ul, c.lr) for c in r.all_chars]
 
 
-@pytest.mark.parametrize("raster,feed", [("device", "strips"),
-                                         ("host", "strips"),
-                                         ("host", "page")])
-def test_batch_matches_jax(raster, feed, recognizers, jax_frames,
-                           monkeypatch):
-    """Both raster modes, and the host raster's packed-page OCR feed
-    (TEXT_ALIGNMENT_TPU_OCR_FEED=page: the strips are cut on the device
-    from one uploaded page)."""
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", raster)
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_OCR_FEED", feed)
+@pytest.mark.parametrize("backend,workers", [("hybrid", None),
+                                             ("device", None),
+                                             ("hybrid", 2)])
+def test_batch_matches_jax(backend, workers, recognizers, jax_frames):
+    """The native host raster with the OCR pipelined, ops/device.py's
+    packed chain (the card's raster, on CPU tensors here), and the native
+    raster on a thread pool, each against the JAX package's hybrid
+    batch."""
     rec_j, rec_t = recognizers
     folios = [(p.image, p.transcript) for p in _pages()]
-    before = device_raster.fallbacks
-    got = process_batch(folios, rec_t, backend="hybrid", device="cpu")
-    assert device_raster.fallbacks == before
+    got = process_batch(folios, rec_t, backend=backend, device="cpu",
+                        raster_workers=workers)
     ref = jax_batch(folios, rec_j, backend="hybrid")
     _assert_identical(got, ref)
     assert sum(len(r.all_chars) for r in got) > 6 * 6
-
-
-def test_run_overflow_takes_the_host_fallback(recognizers, jax_frames,
-                                              monkeypatch):
-    """Every page overflows the lowered run capacity of program A, takes
-    the host raster, is counted, and the JSON is still the JAX
-    package's."""
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", "device")
-    monkeypatch.setattr(cc, "MAX_RUNS", 256)
-    rec_j, rec_t = recognizers
-    folios = [(p.image, p.transcript) for p in _pages(3)]
-    before = device_raster.fallbacks
-    got = process_batch(folios, rec_t, backend="hybrid", device="cpu")
-    assert device_raster.fallbacks - before == 3
-    monkeypatch.delenv("TEXT_ALIGNMENT_TPU_RASTER")
-    _assert_identical(got, jax_batch(folios, rec_j, backend="hybrid"))
-
-
-def test_table_overflow_takes_the_host_fallback(recognizers, jax_frames,
-                                                monkeypatch):
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", "device")
-    monkeypatch.setattr(cc, "TABLE_MAX_RUNS", 64)
-    rec_j, rec_t = recognizers
-    folios = [(p.image, p.transcript) for p in _pages(2)]
-    before = device_raster.fallbacks
-    got = process_batch(folios, rec_t, backend="hybrid", device="cpu")
-    assert device_raster.fallbacks - before == 2
-    monkeypatch.delenv("TEXT_ALIGNMENT_TPU_RASTER")
-    _assert_identical(got, jax_batch(folios, rec_j, backend="hybrid"))
 
 
 @pytest.mark.parametrize("backend", ["hybrid", "host"])

@@ -2,9 +2,10 @@
 version on the card, at the main-path shapes and at odd ones, the skew
 search on the card against the host oracle, a training step on the card
 against the CPU, the golden JSON fixtures of tests/test_torch_golden.py
-through process() and the device raster on the card, and the mesh's
-sharded OCR and grid in one NCCL rank and in two gloo ranks sharing the
-card, against the one-process run, the mesh of a gloo group started
+through process() and process_batch with the raster on the card,
+process_batch(backend="hybrid") against process() on the card, and the
+mesh's sharded OCR and grid in one NCCL rank and in two gloo ranks sharing
+the card, against the one-process run, the mesh of a gloo group started
 outside the launcher, on the card, the end-to-end example's
 evaluate_checkpoint on the card against the CPU, and ``backend="device"``
 (ops/device.py) on the card against the CPU and the golden JSON. Marked
@@ -647,16 +648,15 @@ def test_cc_table_while_another_thread_allocates(cuda):
 
 
 def test_skew_search_on_the_card(cuda):
+    from text_alignment_tpu_torch.ops import device as dv
     from text_alignment_tpu_torch.ops import oracle
-    from text_alignment_tpu_torch.ops import skew_device as sd
     from text_alignment_tpu_torch.synth import make_page
 
     page = make_page(np.random.default_rng(12), n_lines=4, words_per_line=2)
     img = oracle.to_onebit(page.image)
     for angle in (None, 1.37, -2.6):
         a = oracle.rotate_onebit(img, angle) if angle else img
-        assert (sd.rotation_angle_projections(a.astype(np.uint8),
-                                              device=cuda)
+        assert (dv.rotation_angle_projections(a, device=cuda)
                 == oracle.rotation_angle_projections(a, -6, 6))
 
 
@@ -749,8 +749,9 @@ def test_process_hybrid_rasters_on_the_card(cuda, monkeypatch):
 
     def lines(image, eroded, backend, **kw):
         out = finder(image, eroded, backend=backend, **kw)
-        seen.append((backend, [(s.offset_x, s.offset_y, s.img.tobytes())
-                               for s in out[0]]))
+        seen.append((type(eroded).__name__,
+                     [(s.offset_x, s.offset_y, s.img.tobytes())
+                      for s in out[0]]))
         return out
 
     monkeypatch.setattr(proc, "identify_text_lines", lines)
@@ -764,9 +765,35 @@ def test_process_hybrid_rasters_on_the_card(cuda, monkeypatch):
         launches = dict(_kernels.launches)
     for k in ("raster_rotate_erode", "cc_clean", "cc_table"):
         assert launches[k] == 1, (k, launches)
-    assert [b for b, _ in seen] == ["hybrid", "device", "device"]
+    assert [b for b, _ in seen] == ["ndarray", "PackedPage", "PackedPage"]
     assert seen[1][1] == seen[2][1] == seen[0][1] and len(seen[0][1]) == 10
     assert out["cuda"] == out["cpu"] and out["cpu"]["syl_boxes"]
+
+
+def test_batch_hybrid_matches_process_on_the_card(cuda):
+    """process_batch(backend="hybrid") on the card rasters there as
+    process() does (one raster_rotate_erode launch a folio), with the OCR
+    pipelined, and gives process()'s JSON folio for folio."""
+    from text_alignment_tpu_torch.models.codec import Codec
+    from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
+    from text_alignment_tpu_torch.parallel import process_batch
+    from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
+
+    rec = SeqRecognizer(tl.params_from_np(example_cases.peaky_params()),
+                        Codec(), normalize_on_device=True, device=cuda)
+    pages = [_bench_page(40 + k) for k in range(4)]
+    want = []
+    for p in pages:
+        out = process(p.image, p.transcript, ocropus_model=rec,
+                      backend="hybrid", verbose=False, device=cuda)
+        want.append(None if out is None else to_JSON_dict(out[0], out[2]))
+    _kernels.reset_launches()
+    got = process_batch([(p.image, p.transcript) for p in pages], rec,
+                        backend="hybrid", device=cuda)
+    torch.cuda.synchronize()
+    assert _kernels.launches["raster_rotate_erode"] == len(pages)
+    assert any(w is not None for w in want)
+    assert [None if r is None else r.json_dict for r in got] == want
 
 
 def _train_batch(B, T, ni, nlab, seed):
@@ -869,17 +896,16 @@ def test_example_evaluate_checkpoint_on_the_card(cuda, tmp_path, model):
 
 
 @pytest.mark.parametrize("name", sorted(golden_cases.GOLDEN))
-def test_golden_json_on_the_card(cuda, name, monkeypatch):
+def test_golden_json_on_the_card(cuda, name):
     """process(backend="hybrid") on the card, and process_batch with the
-    raster on the card (the CC kernels and the skew search), give the
-    golden JSON."""
+    same backend, both rastering on the card (the CC kernels, the skew
+    search, the rotate + erode + project kernel), give the golden JSON."""
     from text_alignment_tpu_torch.parallel import process_batch
 
     want = golden_cases.golden(name)
     assert golden_cases.run_golden(name, "hybrid", cuda) == want
     make, params = golden_cases.GOLDEN[name]
     page, transcript, ocr = make()
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_RASTER", "device")
     res, = process_batch([(page.image, transcript)], None,
                          backend="hybrid", preproc_params=params,
                          existing_ocr=[ocr], device=cuda)
@@ -982,12 +1008,13 @@ def test_device_ops_on_the_card_match_the_cpu(cuda, name):
 
 
 def _device_strips(page, params, despeckle_amt, cuda):
-    from text_alignment_tpu_torch.pipeline import device_raster
+    from text_alignment_tpu_torch.pipeline.preprocess import raster_stream
 
-    (_, angle, strips, peaks), = device_raster.raster_stream_device(
-        [page.image], despeckle_amt=despeckle_amt, params=params,
-        device=cuda)
-    return angle, [(s.offset_x, s.offset_y, s.h, s.w) for s in strips], peaks
+    (_, angle, strips, peaks), = raster_stream(
+        [page.image], backend="hybrid", despeckle_amt=despeckle_amt,
+        params=params, device=cuda)
+    return angle, [(s.offset_x, s.offset_y) + s.img.shape for s in strips], \
+        peaks
 
 
 def _host_strips(page, params, despeckle_amt):
@@ -1003,11 +1030,11 @@ def _host_strips(page, params, despeckle_amt):
 @pytest.mark.parametrize("case", ["skew_pos", "skew_neg", "touching",
                                   "noise", "empty"])
 def test_raster_boundaries_on_the_card(cuda, case):
-    """The boundary pages of tests/test_torch_golden.py through the device
-    raster on the card: the angle at the +-6 deg search limit, one strip a
-    line across ink bridges, the area-100 CC dropped and the area-102 CC
-    kept, no line on a blank page; angles, peaks and strip boxes equal to
-    the host engine's."""
+    """The boundary pages of tests/test_torch_golden.py through the raster
+    on the card (``"hybrid"`` on a CUDA device): the angle at the +-6 deg
+    search limit, one strip a line across ink bridges, the area-100 CC
+    dropped and the area-102 CC kept, no line on a blank page; angles,
+    peaks and strip boxes equal to the host engine's."""
     from text_alignment_tpu_torch.pipeline.preprocess import DESPECKLE_AMT
     from text_alignment_tpu_torch.synth import SynthPage
 
@@ -1037,21 +1064,18 @@ def test_raster_boundaries_on_the_card(cuda, case):
 
 
 def test_sat_boundary_page_on_the_card(cuda):
-    """The saturated-CC boundary page through the device raster's program A
-    on the card: the same rotated page as the host engine's (whose
-    151-row bar is removed and 150-row bar kept, test_torch_golden)."""
-    from text_alignment_tpu_torch.ops import oracle
-    from text_alignment_tpu_torch.ops import raster_device as rd
-    from text_alignment_tpu_torch.pipeline.preprocess import DESPECKLE_AMT
+    """The saturated-CC boundary page through the raster on the card: the
+    same rotated page as the host engine's (whose 151-row bar is removed
+    and 150-row bar kept, test_torch_golden)."""
+    from text_alignment_tpu_torch.pipeline.preprocess import (
+        preprocess_device_packed)
 
     page = golden_cases.sat_boundary_page()
-    bin_rot, _, _, angle, ok, (H2, W2) = rd.raster_page(
-        oracle.to_onebit(page.image), DESPECKLE_AMT, 150, device=cuda)
+    got, _, angle = preprocess_device_packed(page.image, device=cuda)
     image, _, want_angle = golden_cases.preprocess_images(page.image,
                                                           backend="hybrid")
-    assert ok and angle == want_angle
-    np.testing.assert_array_equal(
-        bin_rot.cpu().numpy()[:H2, :W2].astype(bool), image)
+    assert angle == want_angle
+    np.testing.assert_array_equal(got, image)
 
 
 def _card_mesh_rank(out_dir, world):

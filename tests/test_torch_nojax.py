@@ -3,8 +3,9 @@ interpreter whose import system refuses ``jax`` and ``jaxlib``,
 text_alignment_tpu_torch and its bench import, process() runs a small
 synthetic page end to end on the CPU, from a .pyrnn.gz model and through
 the device normalizer's plain versions (the full-chain route,
-``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch runs it with the device
-raster (the CC kernels' plain versions), process(backend="device")
+``TEXT_ALIGNMENT_TPU_TAIL=full``), process_batch(backend="device") runs
+it on ops/device.py's raster (the CC kernels' plain versions),
+process(backend="device")
 gives the hybrid JSON (ops/device.py's plain versions), the NW device
 path's plain versions align a pair as the host fill does, diagnose_alignment
 classifies the page's syllables, the end-to-end example's perfect-OCR rung
@@ -40,7 +41,6 @@ _SCRIPT = textwrap.dedent("""
     import torch
 
     torch.set_num_threads(1)
-    os.environ["TEXT_ALIGNMENT_TPU_RASTER"] = "device"
     os.environ["TEXT_ALIGNMENT_TPU_TAIL"] = "full"
 
     import text_alignment_tpu_torch
@@ -53,7 +53,6 @@ _SCRIPT = textwrap.dedent("""
     from text_alignment_tpu_torch.models.pyrnn import save_pyrnn
     from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
     from text_alignment_tpu_torch.parallel import process_batch
-    from text_alignment_tpu_torch.pipeline import device_raster
     from text_alignment_tpu_torch.pipeline import process, to_JSON_dict
     from text_alignment_tpu_torch.synth import make_page
     from text_alignment_tpu_torch.models import lineest as tle
@@ -81,8 +80,7 @@ _SCRIPT = textwrap.dedent("""
     dev_out = process(page.image, page.transcript, ocropus_model=rec,
                       backend="hybrid", verbose=False, device="cpu")
     batch = process_batch([(page.image, page.transcript)] * 2, rec,
-                          backend="hybrid", device="cpu")
-    assert device_raster.fallbacks == 0
+                          backend="device", device="cpu")
     if dev_out is None:
         assert batch == [None, None]
     else:

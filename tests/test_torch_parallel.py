@@ -39,7 +39,7 @@ from text_alignment_tpu_torch.models.lstm import (
     init_params_np, init_params_seeded, params_from_np, params_leaves)
 from text_alignment_tpu_torch.models import recognizer as rz
 from text_alignment_tpu_torch.models.recognizer import (
-    DevicePageStrips, SeqRecognizer, _unpack_wire_rows)
+    SeqRecognizer, _unpack_wire_rows)
 from text_alignment_tpu_torch.models.train import Trainer
 from text_alignment_tpu_torch.parallel import (
     data_model_mesh, infer_dp, make_mesh, process_batch)
@@ -231,10 +231,6 @@ def _rank_cases(out_dir: str, world: int) -> None:
     handle = rec.dispatch_async(inp["inks"])
     out["async_handle_rows"] = (handle[0] == "rows", handle[1])
     out["async_collect"] = rec.collect_async([handle])[0]
-    out["page_feed_error"] = _raises(
-        lambda: rec.dispatch_async(DevicePageStrips(
-            np.zeros((64, 4), np.int32), [(0, 0, 10, 20)])),
-        NotImplementedError)
     out["device_error"] = _raises(
         lambda: SeqRecognizer(params, Codec(), mesh=mesh, device="meta"),
         ValueError)
@@ -509,12 +505,11 @@ def test_padded_rows_decode_to_zero_regions(ranks, one_rank):
 
 def test_mesh_dispatch_runs_synchronously(ranks, one_rank):
     """Under a mesh, dispatch_async hands back finished rows (every
-    rank's collectives in order) and the device-page feed raises."""
+    rank's collectives in order)."""
     world, out = ranks
     is_rows, rows = _same_on_every_rank(out, "async_handle_rows")
     assert is_rows and rows == one_rank["rows_device"]
     assert out[0]["async_collect"] == one_rank["rows_device"]
-    assert "one device" in _same_on_every_rank(out, "page_feed_error")
 
 
 def test_mesh_rejects_another_device(ranks):

@@ -1,5 +1,8 @@
-"""The folio's raster on the card in ``process(backend="hybrid")``, on the
-CPU: the route rule, the rotate + erode + project step on the bit-packed
+"""The raster on the card (``ops/device.py``'s packed chain), which
+``"hybrid"`` takes on a CUDA device for every caller, on the CPU: the
+route rule of ``pipeline/preprocess``, the whole chain and its line finder
+against the host oracle (skewed pages, the area filter, an empty page), a
+run overflow raising, the rotate + erode + project step on the bit-packed
 page (its plain version and a CPU model of the ``csrc/raster.cu``
 kernel's banded word schedule) against the native engine, the line finder
 on the packed eroded page, and ``process()`` through the card route's code
@@ -11,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from text_alignment_tpu_torch.ops import cc, host_native
+from text_alignment_tpu_torch.ops import cc, host_native, oracle
 from text_alignment_tpu_torch.ops import device as dv
 from text_alignment_tpu_torch.ops import fixedpoint as fxp
 from text_alignment_tpu_torch.pipeline import to_JSON_dict
@@ -22,6 +25,8 @@ from text_alignment_tpu_torch.pipeline.preprocess import (
 from text_alignment_tpu_torch.synth import (
     corrupt_ocr, make_page, ocr_with_spaces)
 
+preprocess_mod = importlib.import_module(
+    "text_alignment_tpu_torch.pipeline.preprocess")
 process_mod = importlib.import_module(
     "text_alignment_tpu_torch.pipeline.process")
 torch.set_num_threads(1)
@@ -90,15 +95,101 @@ def kernel_model(packed, H, W, cfix, sfix, H2, W2, band):
     return rot.view(np.int32), ero.view(np.int32), proj
 
 
-def test_route_rule():
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("backend", ["hybrid", "host", "device"])
+def test_route_rule(backend, device):
     """hybrid on a CUDA device rasters on the card; on a CPU device it
-    keeps the native engine; host and device are their own."""
-    cuda = torch.device("cuda")
-    assert process_mod.raster_backend("hybrid", cuda) == "device"
-    assert process_mod.raster_backend("hybrid", CPU) == "hybrid"
-    for dev in (cuda, CPU):
-        assert process_mod.raster_backend("host", dev) == "host"
-        assert process_mod.raster_backend("device", dev) == "device"
+    keeps the native engine; host and device are their own. The span of a
+    folio on the card follows the same rule."""
+    want = "device" if (backend, device) == ("hybrid", "cuda") else backend
+    assert preprocess_mod.raster_backend(backend, torch.device(device)) \
+        == want
+    assert preprocess_mod.raster_backend(backend, device) == want
+    assert preprocess_mod.rasters_on_card(backend, device) == (
+        device == "cuda" and want == "device")
+
+
+DAMT, SAT = 10, 60
+
+
+def _grey(seed, skew=None):
+    """A seeded page binarized, rotated by ``skew``, as a two-level grey
+    image."""
+    page = make_page(np.random.default_rng(seed), n_lines=4,
+                     words_per_line=2)
+    img = oracle.to_onebit(page.image)
+    img = oracle.rotate_onebit(img, skew) if skew else img
+    return np.where(img, 0, 255).astype(np.uint8)
+
+
+def _oracle_chain(grey, by_area, sat):
+    img = oracle.to_onebit(grey)
+    img = oracle.despeckle(img, DAMT)
+    img = ~oracle.despeckle(~img, DAMT)
+    img = (oracle.remove_big_ccs if by_area else oracle.remove_tall_ccs)(
+        img, sat)
+    angle = oracle.rotation_angle_projections(img, -6, 6)
+    rot = oracle.rotate_onebit(img, angle)
+    er = oracle.filter_short_runs(rot, 2, "black")
+    er = oracle.filter_narrow_runs(er, 2, "black")
+    return rot, er, angle
+
+
+@pytest.mark.parametrize("skew,by_area", [(None, False), (1.37, False),
+                                          (-2.6, False), (None, True)])
+def test_packed_chain_matches_oracle(skew, by_area):
+    """preprocess_device_packed and the line finder on its packed page
+    give the host oracle's rotated page, eroded page, projection, angle,
+    strips and peaks (the cleanup chain with the row or the area filter,
+    the skew search, rotate + erode + project, the masked CC table)."""
+    grey = _grey(12, skew)
+    sat = SAT * SAT if by_area else SAT  # an area keeps the glyphs
+    params = PreprocParams(sat_area_thresh=sat, sat_filter_area=by_area,
+                           filter_size=8)
+    image, eroded, angle = preprocess_device_packed(grey, DAMT,
+                                                    params=params, device=CPU)
+    want_rot, want_er, want_angle = _oracle_chain(grey, by_area, sat)
+    assert angle == want_angle
+    np.testing.assert_array_equal(image, want_rot)
+    np.testing.assert_array_equal(
+        cc.unpack_page(eroded.words.numpy(), *eroded.shape), want_er)
+    np.testing.assert_array_equal(eroded.proj,
+                                  oracle.projection_rows(want_er))
+    s, p, sm = identify_text_lines(image, eroded, backend="device",
+                                   params=params, device=CPU)
+    s_o, p_o, sm_o = identify_text_lines(want_rot, want_er, backend="host",
+                                         params=params)
+    assert p == p_o and len(p) >= 3
+    np.testing.assert_array_equal(sm, sm_o)
+    assert [(x.offset_x, x.offset_y, x.img.tobytes()) for x in s] == \
+        [(x.offset_x, x.offset_y, x.img.tobytes()) for x in s_o]
+
+
+def test_packed_chain_on_an_empty_page():
+    image, eroded, angle = preprocess_device_packed(
+        np.full((96, 160), 255, np.uint8), DAMT, device=CPU)
+    assert not image.any() and not eroded.proj.any()
+    strips, peaks, _ = identify_text_lines(image, eroded, backend="device",
+                                           device=CPU)
+    assert strips == [] and len(peaks) == 0
+
+
+@pytest.mark.parametrize("kernel", ["cc_clean", "cc_table"])
+def test_packed_chain_raises_on_a_run_overflow(kernel, monkeypatch):
+    """The chain's capacity is the most runs a page can hold, so a kernel's
+    ok of 0 is a fault: with the capacity of the cleanup chain or of the
+    table lowered below the page's runs, the route raises; there is no
+    host fallback."""
+    orig = getattr(cc, kernel)
+
+    def lowered(*args):
+        return orig(*args[:-1], 64)
+
+    monkeypatch.setattr(cc, kernel, lowered)
+    grey = _grey(12)
+    with pytest.raises(RuntimeError, match=kernel):
+        image, eroded, _ = preprocess_device_packed(grey, DAMT, device=CPU)
+        identify_text_lines(image, eroded, backend="device", device=CPU)
 
 
 @pytest.mark.parametrize("W", WIDTHS)
@@ -167,12 +258,12 @@ def test_packed_line_finder_matches_native(seed):
 
 def _process(page, ocr, monkeypatch, route=None):
     """process(backend="hybrid") on the CPU with injected OCR: (JSON, the
-    raster backends it took, the strips the line finder gave)."""
+    eroded page's type at the line finder, the strips it gave)."""
     seen, strips = [], []
     finder = process_mod.identify_text_lines
 
     def lines(image, eroded, backend, **kw):
-        seen.append(backend)
+        seen.append(type(eroded).__name__)
         out = finder(image, eroded, backend=backend, **kw)
         strips.extend((s.offset_x, s.offset_y, s.img.tobytes())
                       for s in out[0])
@@ -180,7 +271,7 @@ def _process(page, ocr, monkeypatch, route=None):
 
     monkeypatch.setattr(process_mod, "identify_text_lines", lines)
     if route is not None:
-        monkeypatch.setattr(process_mod, "raster_backend", route)
+        monkeypatch.setattr(preprocess_mod, "raster_backend", route)
     out = process_mod.process(page.image, page.transcript, existing_ocr=ocr,
                               verbose=False, backend="hybrid", device=CPU,
                               preproc_params=SYNTH_PARAMS)
@@ -200,9 +291,10 @@ def test_process_card_route_matches_native_on_cpu(monkeypatch):
            for cb in ocr_with_spaces(corrupt_ocr(np.random.default_rng(13),
                                                  page.char_boxes))]
     js_n, seen_n, strips_n = _process(page, ocr, monkeypatch)
-    assert seen_n == ["hybrid"]
+    assert seen_n == ["ndarray"]
     js_c, seen_c, strips_c = _process(page, ocr, monkeypatch,
-                                      route=lambda backend, device: "device")
-    assert seen_c == ["device"]
+                                      route=lambda backend, device=None:
+                                      "device")
+    assert seen_c == ["PackedPage"]
     assert js_c == js_n and js_n["syl_boxes"]
     assert strips_c == strips_n and len(strips_n) == 5

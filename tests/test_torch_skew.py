@@ -1,6 +1,6 @@
-"""The port's skew search (``ops/skew_device.py``) against the host oracle
-and against the JAX package's device search (``ops/skew_device.py`` under
-``TEXT_ALIGNMENT_TPU_SKEW=device``, XLA on the CPU): the angles are
+"""The port's skew search (``ops/skew_device.py``, the search of the card
+raster's chain) against the host oracle and against the JAX package's
+device search (``ops/skew_device.py``, XLA on the CPU): the angles are
 identical on seeded pages skewed to +1.37, -1.37 and -2.6 degrees, on blank
 and tiny pages, and on a wide page whose full-width ink band gives
 projection steps past 4096."""
@@ -47,10 +47,9 @@ PAGES = {"skew+1.37": lambda: _skewed(12, 1.37),
 
 
 @pytest.mark.parametrize("name", list(PAGES))
-def test_search_matches_oracle_and_jax(name, monkeypatch):
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_SKEW", "device")
+def test_search_matches_oracle_and_jax(name):
     img = PAGES[name]()
-    got = sd.rotation_angle_projections(img.astype(np.uint8), device="cpu")
+    got = sd.angle_from_indices(*sd.search(torch.from_numpy(img)).tolist())
     assert got == oracle.rotation_angle_projections(img, -6, 6)
     assert got == jax_sd.rotation_angle_projections(img, -6, 6)
 
@@ -64,32 +63,3 @@ def test_tan_tree_and_indices_are_the_jax_packages():
                       int(rng.integers(19)))
         assert (sd.angle_from_indices(i1, i2, i3)
                 == jax_sd.angle_from_indices(i1, i2, i3))
-
-
-def test_grouped_worker_matches_oracle():
-    """put() and the native engine's put_runs() on pages of distinct
-    shapes, redeemed out of order."""
-    from text_alignment_tpu_torch.ops import host_native as hn
-
-    pages = [_skewed(20 + k, a) for k, a in enumerate((0.8, -3.3, 2.2))]
-    w = sd.GroupedSkewWorker(device="cpu")
-    slots = [w.put(p.astype(np.uint8)) for p in pages]
-    if hn.available():
-        img, runs, n = hn.preprocess_page_phase1(
-            make_page(np.random.default_rng(5), n_lines=3,
-                      words_per_line=2).image, 100, 150)
-        slots.append(w.put_runs(runs, n, *img.shape))
-        pages.append(img.astype(bool))
-    w.finish()
-    w.finish()  # idempotent
-    for p, s in reversed(list(zip(pages, slots))):
-        assert w.angle(s) == oracle.rotation_angle_projections(p, -6, 6)
-
-
-def test_enabled_follows_the_switch(monkeypatch):
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_SKEW", "auto")
-    assert sd.enabled("cuda") and not sd.enabled("cpu")
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_SKEW", "host")
-    assert not sd.enabled("cuda")
-    monkeypatch.setenv("TEXT_ALIGNMENT_TPU_SKEW", "device")
-    assert sd.enabled("cpu")

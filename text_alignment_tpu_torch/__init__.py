@@ -14,24 +14,24 @@ alignment and the scoring grid search, the manuscript batch, serving):
   ``verify-reference``.
 - ``parallel.batch`` — ``process_batch``: many folios stage-major, the OCR
   queued on the card while the host rasters the next folio, NW batched by
-  size bucket; with ``TEXT_ALIGNMENT_TPU_RASTER=device`` the raster runs
-  on the card (``pipeline.device_raster``).
+  size bucket; the raster on the engine ``process()`` takes.
 - ``pipeline.process`` — ``process()`` and ``to_JSON_dict``.
 - ``pipeline.preprocess`` / ``pipeline.assemble`` / ``pipeline.render`` —
-  the raster, line segmentation and assembly: the port's own copies of the
-  JAX package's framework-free host code (as are ``lang``, ``charbox``,
+  the raster, line segmentation and assembly (``preprocess.raster_backend``
+  picks the raster engine: on a card ``"hybrid"`` and ``"device"`` both
+  take ``ops.device``): the port's own copies of the JAX package's
+  framework-free host code (as are ``lang``, ``charbox``,
   ``textio``, ``synth``, ``models.codec``, ``models.pyrnn``,
   ``models.lineest_host``, ``align.scoring``, ``align.nw_host``,
   ``align.traceback``, ``utils`` (timing, the stage cache, the OCR-pickle
   loader), ``mei`` and ``ops.oracle`` / ``fixedpoint`` /
   ``projections`` / ``host_native``).
-- ``pipeline.device_raster`` / ``ops.raster_device`` — the raster on a
-  device: programs A (cleanup, skew, rotation, erosion, projection), B
-  (separator-masked CC table) and C (strip cutting).
+- ``ops.device`` — the raster on a device: the cleanup chain, the skew
+  search (``ops.skew_device``), rotation, erosion and projection on the
+  bit-packed page (``ops.raster_kernel``), the separator-masked CC table.
 - ``ops.cc`` / ``ops.cc_kernel`` — connected components over a bit-packed
   page (filter pass, cleanup chain, stats table), hand-written CUDA kernels
-  beside their plain PyTorch version. ``ops.skew_device`` — the skew
-  search on a device.
+  beside their plain PyTorch version.
 - ``evaluate`` — ``grid_search`` over the scoring grid.
 - ``align.api`` — ``perform_alignment`` and ``align_grid``: NW on the host
   fill or on a device. ``align.nw_torch`` — one pair, batches of pairs

@@ -14,8 +14,8 @@ Usage:
 
 Counterpart of ``text_alignment_tpu/cli.py``: ``align`` (the folio-at-a-
 time loop, with ``--cache-dir`` the content-addressed stage cache, and with
-``--batch N`` the stage-major batched pipeline, N folios per call; set
-``TEXT_ALIGNMENT_TPU_RASTER=device`` to run its raster on the card),
+``--batch N`` the stage-major batched pipeline, N folios per call, which
+rasters on the card as the folio loop does),
 ``serve`` (the spool-directory server), ``evaluate`` (IoU evaluation and
 the scoring grid search), ``mei``, ``verify-reference``, and the training
 workflow: ``lines`` (per-line training crops), ``gtedit`` (the correction

@@ -12,15 +12,13 @@ reference's, which makes it the parity surface. Otherwise strips are
 normalized on the host by the reference's scipy normalizer.
 
 The batched pipeline (``parallel/batch``) drives the asynchronous half:
-``dispatch_async`` queues a batch (host strips, or a ``DevicePageStrips``
-feed that cuts the strips from a device-resident page with the device
-raster's program C) and returns at once; ``collect_async`` brings any
-number of dispatches back in one copy. With a ``mesh`` (a
-``torch.distributed`` device mesh, :mod:`..parallel.mesh`) the batch is
-sharded over the ranks of its ``data`` axis (:mod:`..parallel.infer_dp`)
-and every rank decodes the whole batch; the asynchronous half then runs
-synchronously and the device-page feed raises. There is no kernel
-fallback: a kernel that fails to build or launch raises.
+``dispatch_async`` queues a batch of host strips and returns at once;
+``collect_async`` brings any number of dispatches back in one copy. With
+a ``mesh`` (a ``torch.distributed`` device mesh, :mod:`..parallel.mesh`)
+the batch is sharded over the ranks of its ``data`` axis
+(:mod:`..parallel.infer_dp`) and every rank decodes the whole batch; the
+asynchronous half then runs synchronously. There is no kernel fallback: a
+kernel that fails to build or launch raises.
 
 The network is ocropy's BiLSTM (:class:`.lstm.BiLSTMParams`, one posterior
 a normalized column) or kraken's default VGSL network
@@ -121,32 +119,6 @@ def _unpack_wire_rows(packed_u16: np.ndarray) -> np.ndarray:
     p = np.asarray(packed_u16).astype(np.int32)
     hdr = p[:, 0:6:2] + (p[:, 1:6:2] << 16)
     return np.concatenate([hdr, p[:, 6:]], axis=1)
-
-
-class DevicePageStrips:
-    """OCR feed referencing a whole BIT-PACKED page instead of host strip
-    crops: ``page_packed`` is (H, ceil(W/32)) int32 little-endian bit rows
-    — a numpy array (uploaded once per folio by the dispatch) or a tensor
-    already on the recognizer's device (the device-raster mode, no upload
-    at all). ``bboxes`` are (uly, ulx, h, w) tuples in page coordinates.
-    Passed to ``SeqRecognizer.dispatch_async`` in place of the host strip
-    list."""
-
-    __slots__ = ("page_packed", "bboxes")
-
-    def __init__(self, page_packed, bboxes):
-        self.page_packed = page_packed
-        self.bboxes = list(bboxes)
-
-
-class _ShapeProxy:
-    """Stands in for a host strip array where only ``.shape`` is read
-    (llocs position decode needs the raw strip width)."""
-
-    __slots__ = ("shape",)
-
-    def __init__(self, shape):
-        self.shape = shape
 
 
 class SeqRecognizer:
@@ -257,8 +229,6 @@ class SeqRecognizer:
         return results
 
     def _to_device(self, packed_meta):
-        if isinstance(packed_meta, torch.Tensor):
-            return packed_meta.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(packed_meta)).to(
             self.device)
 
@@ -283,15 +253,13 @@ class SeqRecognizer:
             max_regions=_WIRE_REGIONS, decode=self.decode)
 
     def dispatch_async(self, strips):
-        """Queue device OCR for onebit ``strips`` (or a
-        :class:`DevicePageStrips` feed) WITHOUT waiting for it: returns an
-        opaque handle whose device work overlaps whatever the host does
-        next (the next folio's raster). Redeem with ``collect_async``.
+        """Queue device OCR for onebit ``strips`` WITHOUT waiting for it:
+        returns an opaque handle whose device work overlaps whatever the
+        host does next (the next folio's raster). Redeem with
+        ``collect_async``.
         Grey strips and a recognizer with a mesh run synchronously (the
         guard of recognize_batch; every rank's collectives in order); the
         handle then carries the finished rows."""
-        if isinstance(strips, DevicePageStrips):
-            return self._dispatch_async_page(strips)
         if not strips:
             return ("rows", [], None)
         inks = [np.asarray(s) for s in strips]
@@ -301,34 +269,6 @@ class SeqRecognizer:
         t_max = self._initial_t_max(Wp, ws[: len(inks)])
         out = self._wire_async(self._to_device(packed_meta), t_max)
         return (inks, out, (t_max, packed_meta, ws))
-
-    def _dispatch_async_page(self, feed: DevicePageStrips):
-        """dispatch_async for a bit-packed page: program C
-        (``ops.raster_device.extract_strips_packed``) cuts the strips from
-        the page on the device into the recognizer's packed wire, then the
-        same OCR program runs. The handle is shaped like dispatch_async's,
-        with the device-resident packed batch in place of the host one, so
-        an escalation re-dispatch reuses it (the caps do not change the
-        cut)."""
-        from ..ops.raster_device import extract_strips_packed
-
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "device-page OCR feeds run on one device (the mesh path "
-                "keeps the host raster; see parallel.batch)")
-        if not feed.bboxes:
-            return ("rows", [], None)
-        shapes = [(int(h), int(w)) for (_, _, h, w) in feed.bboxes]
-        B, Hp, Wp = self._plan_pack(shapes)
-        bb = np.zeros((B, 4), np.int32)
-        bb[: len(feed.bboxes)] = np.asarray(feed.bboxes, np.int32)
-        ws = np.zeros(B, np.int32)
-        ws[: len(shapes)] = [w for _, w in shapes]
-        t_max = self._initial_t_max(Wp, ws[: len(shapes)])
-        pm_dev = extract_strips_packed(self._to_device(feed.page_packed), bb,
-                                       Hp, Wp)
-        out = self._wire_async(pm_dev, t_max)
-        return ([_ShapeProxy(s) for s in shapes], out, (t_max, pm_dev, ws))
 
     @staticmethod
     def _materialize_live(live):

@@ -1,7 +1,7 @@
 """Raster operations of the port: the host oracle and native engine
-(copies of the JAX package's), the device skew search, the connected-
-components kernels (:mod:`.cc`, :mod:`.cc_kernel`) and the device raster
-programs (:mod:`.raster_device`)."""
+(copies of the JAX package's), the connected-components kernels
+(:mod:`.cc`, :mod:`.cc_kernel`), the device skew search and the raster on
+a device (:mod:`.device`), the port's one raster on the card."""
 
 from . import oracle
 from . import device

@@ -1,4 +1,7 @@
-"""The all-device raster on a torch device: ``backend="device"``.
+"""The all-device raster on a torch device: ``backend="device"``, and
+``"hybrid"`` on a CUDA device, for every caller (the rule is
+:func:`..pipeline.preprocess.raster_backend`). It is the port's one raster
+on the card.
 
 Counterpart of ``text_alignment_tpu/ops/device.py``, with its public names
 and an explicit ``device`` on every function that takes a page (None: the
@@ -31,8 +34,8 @@ bit-identical to the JAX module and to the host oracle.
   plain version (:func:`rotate_erode_project_reference`) is the torch chain
   below.
 - **Everything else** is torch integer ops: the run filters are
-  :func:`.raster_device.filter_runs_impl`, the rotation is the shared Q16
-  inverse map (:mod:`.fixedpoint`) onto the exact canvas
+  :func:`filter_runs_impl`, the rotation is the shared Q16 inverse map
+  (:mod:`.fixedpoint`, :func:`_rotate`) onto the exact canvas
   ``fixedpoint.rotated_canvas``, and the skew search is
   :func:`.skew_device.search` (the squared-derivative criterion, which
   overflows int32, reduced in int64). :func:`shear_projections` keeps the
@@ -52,7 +55,6 @@ from . import fixedpoint as fxp
 from . import oracle
 from . import raster_kernel
 from . import skew_device as sd
-from .raster_device import _rotate_max_canvas, filter_runs_impl
 
 MAX_CCS = 4096
 # projections of at most this many gathered pixels at once (a 2000 x 1600
@@ -178,6 +180,27 @@ def despeckle_white(img, k, device=None):
 # run filters
 # ---------------------------------------------------------------------------
 
+def _run_length_map_axis0(img):
+    """Length of the vertical run through each pixel, via last-white /
+    next-white cumulative extrema."""
+    H, W = img.shape
+    idx = torch.arange(H, device=img.device)[:, None].expand(H, W)
+    white = ~img
+    lz = torch.cummax(torch.where(white, idx, -1), dim=0).values
+    nz = torch.cummin(torch.where(white, idx, H).flip(0), dim=0).values
+    return nz.flip(0) - lz - 1
+
+
+def filter_runs_impl(img, k: int, color: str, axis: int):
+    """Remove runs of ``color`` along ``axis`` shorter than k (axis 0:
+    Gamera filter_short_runs, axis 1: filter_narrow_runs)."""
+    target = img if color == "black" else ~img
+    t = target if axis == 0 else target.t()
+    keep = t & (_run_length_map_axis0(t) >= k)
+    keep = keep if axis == 0 else keep.t()
+    return keep if color == "black" else ~keep
+
+
 def filter_runs(img, k, color="black", axis=0, device=None):
     """Remove runs of ``color`` along ``axis`` with length < k.
     axis=0 == Gamera filter_short_runs; axis=1 == filter_narrow_runs."""
@@ -295,8 +318,8 @@ def rotate_erode_project_reference(packed, H: int, W: int, cfix, sfix, H2,
     """The plain version of :func:`rotate_erode_project_packed`: the
     rotation gather, the run-length erosion and the row sum in torch ops on
     the page's device."""
-    rot = _rotate_max_canvas(cc.unpack_bits(packed, W), int(cfix),
-                             int(sfix), int(H2), int(W2), int(H2), int(W2))
+    rot = _rotate(cc.unpack_bits(packed, W), int(cfix), int(sfix), int(H2),
+                  int(W2))
     eroded = rot
     for _ in range(filter_runs):
         eroded = filter_runs_impl(eroded, filter_runs_amt, "black", 0)
@@ -387,6 +410,27 @@ def rotation_angle_projections(img, minangle=-6.0, maxangle=6.0,
     return sd.angle_from_indices(*idx, minangle, maxangle)
 
 
+def _rotate(img, cfix, sfix, H2: int, W2: int):
+    """Nearest-neighbor rotation onto the (H2, W2) canvas via the shared
+    Q16 inverse map (fxp.inverse_rotation_map's formula, arithmetic shifts
+    of negative values as in numpy), white where the source is outside the
+    page."""
+    H, W = img.shape
+    dev = img.device
+    x2 = torch.arange(W2, device=dev)[None, :]
+    y2 = torch.arange(H2, device=dev)[:, None]
+    dx2 = 2 * x2 - (W2 - 1)
+    dy2 = 2 * y2 - (H2 - 1)
+    sx2 = cfix * dx2 + sfix * dy2
+    sy2 = -sfix * dx2 + cfix * dy2
+    src_x = (sx2 + (W - 1) * fxp.SCALE + fxp.SCALE) >> (fxp.SCALE_BITS + 1)
+    src_y = (sy2 + (H - 1) * fxp.SCALE + fxp.SCALE) >> (fxp.SCALE_BITS + 1)
+    valid = (src_y >= 0) & (src_y < H) & (src_x >= 0) & (src_x < W)
+    sy = src_y.clamp(0, H - 1)
+    sx = src_x.clamp(0, W - 1)
+    return img.reshape(-1)[sy * W + sx] & valid
+
+
 def rotate_onebit(img, angle_deg: float, device=None):
     """Rotate about the center onto an expanded white canvas;
     bit-identical to oracle.rotate_onebit."""
@@ -394,4 +438,4 @@ def rotate_onebit(img, angle_deg: float, device=None):
     H, W = int(img.shape[0]), int(img.shape[1])
     H2, W2 = fxp.rotated_canvas(H, W, angle_deg)
     cfix, sfix = fxp.rotation_coeffs(angle_deg)
-    return _rotate_max_canvas(img, cfix, sfix, H2, W2, H2, W2)
+    return _rotate(img, cfix, sfix, H2, W2)

@@ -17,19 +17,19 @@ is monotone in x, so the columns of one shift are a contiguous range) and
 realigned by a gather; the criterion (the sum of the squared derivative,
 ``oracle.criterion_from_projections``) is one int64 sum; the first maximum
 wins. This is the JAX package's XLA search,
-not a Pallas kernel, so it stays plain PyTorch.
+not a Pallas kernel, so it stays plain PyTorch. It runs inside the card
+raster's chain (:func:`..pipeline.preprocess.preprocess_device_packed`,
+:func:`.device.rotation_angle_projections`).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import os
 
 import numpy as np
 import torch
 
-from ..align.api import resolve_device
 from . import fixedpoint as fxp
 
 _A23 = 19  # rounds 2/3 grid size: int(round(2*0.9/0.1)) + 1, fixed by recipe
@@ -144,120 +144,3 @@ def search(img, minangle: float = -6.0, maxangle: float = 6.0):
             ts = t3.reshape(-1, _A23).index_select(
                 0, (picks[0] * _A23 + picks[1]).reshape(1))[0]
     return torch.stack(picks)
-
-
-def enabled(device=None) -> bool:
-    """Whether the pipelined batched raster should use the device skew
-    path (TEXT_ALIGNMENT_TPU_SKEW=host|device|auto): auto means a CUDA
-    device (``device``'s type when given, else whether a card is
-    present); on the CPU the search is correct but slower than the native
-    host engine, so only tests force it there."""
-    mode = os.environ.get("TEXT_ALIGNMENT_TPU_SKEW", "auto")
-    if mode == "host":
-        return False
-    if mode == "device":
-        return True
-    if device is not None:
-        return torch.device(device).type == "cuda"
-    return torch.cuda.is_available()
-
-
-def dispatch(img_u8: np.ndarray, minangle: float = -6.0,
-             maxangle: float = 6.0, device=None):
-    """Upload one 0/1 uint8 page and queue the full skew search on
-    ``device`` (None: the card). Returns an opaque handle; redeem with
-    :func:`collect`."""
-    page = torch.from_numpy(np.ascontiguousarray(img_u8, np.uint8))
-    return (PendingCopy(search(page.to(resolve_device(device)), minangle,
-                               maxangle)), (minangle, maxangle))
-
-
-def collect(handle) -> float:
-    """Block on a :func:`dispatch` handle and return the detected angle
-    (bit-identical to the host search's float)."""
-    pending, (mn, mx) = handle
-    i1, i2, i3 = pending.get().tolist()
-    return angle_from_indices(i1, i2, i3, mn, mx)
-
-
-def rotation_angle_projections(img, minangle: float = -6.0,
-                               maxangle: float = 6.0, device=None) -> float:
-    """Synchronous convenience wrapper (oracle signature)."""
-    return collect(dispatch(np.asarray(img), minangle, maxangle, device))
-
-
-class PendingCopy:
-    """A small device result copied to the host without blocking the
-    caller: a ``non_blocking`` copy into pinned memory, redeemed by
-    :meth:`get`, which waits for that copy alone. CPU tensors are taken as
-    they are."""
-
-    __slots__ = ("_host", "_event")
-
-    def __init__(self, t):
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
-        else:
-            self._host, self._event = t, None
-
-    def get(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
-
-
-class GroupedSkewWorker:
-    """Queued skew searches for the stage-major batched raster.
-
-    The JAX package's worker groups pages into one transfer and pulls the
-    winners on a collector thread to amortise a remote tunnel's latency.
-    On a local card each page is one upload and one queued search whose
-    three winner indices come back by a ``non_blocking`` copy into pinned
-    memory, so the search of page i overlaps the host raster of the pages
-    after it. Protocol as the JAX package's: ``put(img)`` or
-    ``put_runs(...)`` per page (returns a slot id), ``finish()`` after the
-    last put (idempotent), then ``angle(slot)`` per page (waits for that
-    page's copy)."""
-
-    def __init__(self, minangle: float = -6.0, maxangle: float = 6.0,
-                 device=None):
-        self._mn, self._mx = minangle, maxangle
-        self._device = resolve_device(device)
-        self._pending: dict = {}
-        self._n = 0
-
-    def _submit(self, bits8: np.ndarray, H: int, W: int) -> int:
-        from .cc import unpack_bits
-
-        packed = torch.from_numpy(bits8.view(np.int32)).to(self._device)
-        slot = self._n
-        self._n += 1
-        self._pending[slot] = PendingCopy(search(unpack_bits(packed, W)[:H],
-                                              self._mn, self._mx))
-        return slot
-
-    def put(self, img_u8: np.ndarray) -> int:
-        H, W = img_u8.shape
-        bits8 = np.zeros((H, -(-W // 32) * 4), np.uint8)
-        bits8[:, : (W + 7) // 8] = np.packbits(img_u8, axis=1,
-                                               bitorder="little")
-        return self._submit(bits8, H, W)
-
-    def put_runs(self, runs: np.ndarray, n: int, H: int, W: int) -> int:
-        """put() without the page re-read: OR the phase-1 run list's ink
-        bits straight into a zeroed buffer (native engine only)."""
-        from . import host_native as hn
-
-        bits8 = np.zeros((H, -(-W // 32) * 4), np.uint8)
-        hn.pack_runs_into(runs, n, bits8)
-        return self._submit(bits8, H, W)
-
-    def finish(self):
-        pass
-
-    def angle(self, slot: int) -> float:
-        i1, i2, i3 = self._pending.pop(slot).get().tolist()
-        return angle_from_indices(i1, i2, i3, self._mn, self._mx)

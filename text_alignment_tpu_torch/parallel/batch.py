@@ -9,26 +9,20 @@ align_pairs`, one launch per size bucket), then host assembly. Output is
 byte-identical to the JAX package's ``process_batch`` and to the port's
 sequential ``process()``.
 
-The raster stage runs in one of three modes:
-
-- ``backend="device"`` (the default, as in the JAX package): the port's
-  ``raster_stream`` running :mod:`..ops.device` on the device page by
-  page;
-- ``backend="hybrid"``: the port's ``raster_stream`` (the native host
-  raster, with the skew search on the device through
-  ``ops.skew_device.GroupedSkewWorker`` when the device is a card);
-- ``backend="hybrid"`` with ``TEXT_ALIGNMENT_TPU_RASTER=device``:
-  :func:`..pipeline.device_raster.raster_stream_device`, the raster on
-  the device around the ``cc_clean`` and ``cc_table`` kernels, with the
-  OCR stage cutting the strips from the device page
-  (``DevicePageStrips``).
+The raster stage is :func:`..pipeline.preprocess.raster_stream`, whose
+engine :func:`..pipeline.preprocess.raster_backend` picks from
+``backend`` and ``device``, as it does for ``process()``: on a CUDA card
+``"device"`` (the default, as in the JAX package) and ``"hybrid"`` both
+raster with :mod:`..ops.device`, the eroded page staying packed on the
+card for the line finder; on a CPU device ``"hybrid"`` takes the native
+host engine.
 
 With a ``mesh`` (:mod:`.mesh`), the whole batch is sharded over the
 ranks of its ``data`` axis, every rank holding the same folios: each rank
-rasters every folio on a thread pool, the cross-folio OCR batch is
-sharded (:mod:`.infer_dp`) and so are the NW buckets (``align_pairs``);
-every rank returns the same results, byte-identical to the unsharded
-batch.
+rasters every folio on a thread pool (on the same engine), the
+cross-folio OCR batch is sharded (:mod:`.infer_dp`) and so are the NW
+buckets (``align_pairs``); every rank returns the same results,
+byte-identical to the unsharded batch.
 """
 
 from __future__ import annotations
@@ -51,21 +45,9 @@ from ..pipeline.assemble import (
     group_syllables,
     rotate_bboxes,
 )
-from ..pipeline.preprocess import (
-    preprocess_images,
-    raster_stream,
-    identify_text_lines,
-)
+from ..pipeline.preprocess import raster_stream
 from ..pipeline.process import BACKENDS, to_JSON_dict
 from ..utils.timing import StageTimer
-
-
-def _page_feed_enabled() -> bool:
-    """Packed-page OCR feed (TEXT_ALIGNMENT_TPU_OCR_FEED=page|strips): the
-    host raster uploads the bit-packed rotated page once per folio and the
-    strips are cut on the device, instead of packing and uploading the
-    strip crops. Default "strips", as in the JAX package."""
-    return os.environ.get("TEXT_ALIGNMENT_TPU_OCR_FEED", "strips") == "page"
 
 
 @dataclass
@@ -91,11 +73,11 @@ class PipelinedOCRWorker:
     programs that produced a device-resident page (one stream, in issue
     order).
 
-    Protocol: construct with the folio count, call :meth:`put` once per
-    folio (in order), then :meth:`rows` to join. On a raster failure call
-    :meth:`abandon` (idempotent; also safe after full enqueue) so the
-    worker — which loops exactly ``n`` times on the queue — terminates
-    instead of leaking a blocked thread."""
+    Protocol: construct with the folio count, call :meth:`put` with each
+    folio's strip images (in order), then :meth:`rows` to join. On a
+    raster failure call :meth:`abandon` (idempotent; also safe after full
+    enqueue) so the worker — which loops exactly ``n`` times on the queue
+    — terminates instead of leaking a blocked thread."""
 
     def __init__(self, recognizer, n: int):
         import queue
@@ -184,23 +166,25 @@ def process_batch(folios, recognizer, seq_align_params=None,
     device runs the OCR). ``device``: the torch device of the raster's
     device stages and of the NW fill (None: the card; it raises when there
     is none). ``backend``: "device" (the raster of :mod:`..ops.device` on
-    ``device``), "hybrid" (native host raster), both with NW on the device
-    above ``min_align_device_cells``, or "host" (numpy raster, host NW);
-    another name raises ``ValueError``.
+    ``device``), "hybrid" (the same on a CUDA card, the native host raster
+    on a CPU device), both with NW on the device above
+    ``min_align_device_cells``, or "host" (numpy raster, host NW); another
+    name raises ``ValueError``.
     ``existing_ocr`` optionally injects per-folio CharBox streams,
     skipping the recognizer. ``existing_pre`` injects per-folio (image,
     angle, strips, peaks) tuples, skipping the raster stage.
     ``min_align_device_cells`` forwards to ``align_pairs`` (0 sends every
     pair to the device). ``raster_workers`` rasters the folios on a
-    thread pool (the native engine's calls release the GIL).
+    thread pool (the native engine's calls release the GIL), on the same
+    engine.
 
     ``mesh`` shards the batch over a ``torch.distributed`` mesh's
     ``data`` axis, the Rodan/Celery folio fan-out's counterpart (reference
     textAlignment.py:51): the raster runs on a thread pool, the
     cross-folio OCR batch shards through a copy of ``recognizer`` with the
     mesh set (the caller's recognizer is left as it is), and the bucketed
-    NW launches shard their pairs. The pipelined OCR worker and the
-    device-page feed are off under a mesh. ``device`` is then this rank's
+    NW launches shard their pairs. The pipelined OCR worker is off under
+    a mesh and with ``raster_workers``. ``device`` is then this rank's
     device (None: the mesh's). Output is byte-identical to the unsharded
     run."""
     if backend not in BACKENDS:
@@ -234,35 +218,21 @@ def process_batch(folios, recognizer, seq_align_params=None,
         preproc_params = _dc_replace(pp, sat_filter_area=True)
 
     # stage 1: preprocess + line identification. When the recognizer
-    # normalizes on the device, each folio's OCR is queued as soon as its
-    # strips exist, so the device recognizes folio i while the host
-    # rasters folio i+1.
+    # normalizes on the device and the folios raster in turn, each folio's
+    # OCR is queued as soon as its strips exist, so the device recognizes
+    # folio i while the host rasters folio i+1.
     pipelined = (
         existing_ocr is None
         and existing_pre is None
+        and not raster_workers
         and recognizer is not None
         and getattr(recognizer, "normalize_on_device", False)
         and getattr(recognizer, "mesh", None) is None
     )
 
-    def _raster_one(raw_image):
-        image, eroded, angle = preprocess_images(
-            np.asarray(raw_image), backend=backend, params=preproc_params,
-            device=device)
-        strips, peaks, _ = identify_text_lines(
-            image, eroded, backend=backend, params=preproc_params,
-            verbose=False, device=device)
-        return image, angle, strips, peaks
-
-    use_device_raster = False
-    use_page_feed = False
-    if pipelined and backend == "hybrid":
-        from ..ops import raster_device as _rd
-
-        use_device_raster = _rd.enabled()
-        use_page_feed = not use_device_raster and _page_feed_enabled()
-
-    from ..models.recognizer import DevicePageStrips
+    def _raster(images):
+        return raster_stream(images, backend=backend, params=preproc_params,
+                             device=device)
 
     if existing_pre is not None:
         pre = list(existing_pre)
@@ -272,39 +242,17 @@ def process_batch(folios, recognizer, seq_align_params=None,
         workers = raster_workers or max(1, min(n, os.cpu_count() or 1))
         with timer("preprocess"):
             with ThreadPoolExecutor(max_workers=workers) as ex:
-                pre = list(ex.map(lambda f: _raster_one(f[0]), folios))
+                pre = list(ex.map(
+                    lambda f: next(_raster([np.asarray(f[0])])), folios))
     else:
         pre = []
         ocr_worker = PipelinedOCRWorker(recognizer, n) if pipelined else None
         with timer("preprocess"):
             try:
-                if use_device_raster:
-                    from ..pipeline.device_raster import (
-                        DevicePage, raster_stream_device)
-
-                    stream = raster_stream_device(
-                        [np.asarray(f[0]) for f in folios], backend=backend,
-                        params=preproc_params, device=device)
-                else:
-                    stream = raster_stream(
-                        [np.asarray(f[0]) for f in folios], backend=backend,
-                        params=preproc_params, want_packed=use_page_feed,
-                        device=device)
-                for item in stream:
-                    image, angle, strips, peaks = item[:4]
-                    pre.append((image, angle, strips, peaks))
-                    if ocr_worker is None:
-                        continue
-                    if use_device_raster and isinstance(image, DevicePage):
-                        ocr_worker.put(DevicePageStrips(
-                            image.page_packed, [s.bbox for s in strips]))
-                    elif use_page_feed:
-                        ocr_worker.put(DevicePageStrips(
-                            item[4],
-                            [(s.offset_y, s.offset_x, s.img.shape[0],
-                              s.img.shape[1]) for s in strips]))
-                    else:
-                        ocr_worker.put([s.img for s in strips])
+                for item in _raster([np.asarray(f[0]) for f in folios]):
+                    pre.append(item)
+                    if ocr_worker is not None:
+                        ocr_worker.put([s.img for s in item[2]])
             finally:
                 # a raster failure must not strand the worker (it loops
                 # exactly n times on the queue)

@@ -1,6 +1,7 @@
 """Orchestration of the port: ``process()`` and ``to_JSON_dict``; the
-raster and line segmentation (``preprocess``), the device raster stream
-(``device_raster``), assembly (``assemble``) and overlays (``render``)."""
+raster and line segmentation (``preprocess``, which picks the raster
+engine for every caller), assembly (``assemble``) and overlays
+(``render``)."""
 
 from .preprocess import (
     preprocess_images,

@@ -9,11 +9,9 @@ All engines produce identical pixels/strips:
   host_native`, union-find CC / run filters) with numpy for the rest. The
   JAX package made it the production default because connected-component
   labelling at page shape is a compile-time pathology on remote-compile
-  TPU runtimes; on a CUDA card, where the port has CC kernels,
-  ``process()`` rasters a ``"hybrid"`` folio with ``"device"`` instead
-  (:func:`..pipeline.process.raster_backend`; bit-identical). These
-  functions, the batch's :func:`raster_stream` and a CPU device keep the
-  native engine for ``"hybrid"``.
+  TPU runtimes; on a CUDA device, where the port has CC kernels,
+  ``"hybrid"`` rasters with ``"device"`` instead (:func:`raster_backend`;
+  bit-identical). A CPU device, or no device, keeps the native engine.
 - ``backend="device"``— :mod:`..ops.device` on a torch device (the CC
   kernels of ``csrc/cc_filter.cu``, the rotate + erode + project kernel of
   ``csrc/raster.cu`` and torch ops); the page stays on the device, packed,
@@ -22,6 +20,10 @@ All engines produce identical pixels/strips:
   histogram, the skew winners, the row projection, the compact CC tables
   and the binarized page coming back to the host. Its functions take
   ``device`` (None: the card).
+
+:func:`raster_backend` is the one place that picks the engine: every
+function here applies it to the ``device`` it is given, so ``process()``,
+``process_batch`` and the other callers pass their ``backend`` through.
 
 Projection smoothing, peak prominence, and all per-CC list logic are
 host-side float64/python on *all* paths (they are O(H) / O(#CCs)), so every
@@ -107,6 +109,31 @@ class PackedPage:
         return int(self.words.shape[0]), self.width
 
 
+def raster_backend(backend: str, device=None) -> str:
+    """The raster engine that runs ``backend`` on ``device``: on a CUDA
+    device ``"hybrid"`` rasters on the card as ``"device"`` does
+    (:mod:`..ops.device`, bit-identical to the native engine), by the rule
+    that ``process()`` applies to the OCR stage's normalizer; on a CPU
+    device, or with no device, it keeps the native engine. ``"host"`` and
+    ``"device"`` are their own."""
+    if backend == "hybrid" and device is not None:
+        import torch
+
+        if torch.device(device).type == "cuda":
+            return "device"
+    return backend
+
+
+def rasters_on_card(backend: str, device) -> bool:
+    """Whether ``backend`` rasters on a CUDA card when given ``device``."""
+    if device is None:
+        return False
+    import torch
+
+    return (torch.device(device).type == "cuda"
+            and raster_backend(backend, device) == "device")
+
+
 def _raster_engine(backend: str):
     """Host raster op namespace for the given backend: the native C++
     engine for ``hybrid`` (falling back to the oracle when no toolchain is
@@ -140,10 +167,12 @@ def preprocess_images(input_image, despeckle_amt: int = DESPECKLE_AMT,
     """Binarize + denoise + deskew (textAlignPreprocessing.py:160-195).
 
     Returns (image_bin, image_eroded, angle) as numpy bool arrays.
-    ``device``: the torch device of ``backend="device"`` (None: the card).
+    ``device``: the torch device of ``backend="device"`` (None: the card),
+    which also decides the engine of ``"hybrid"`` (:func:`raster_backend`).
     """
     p = params or PreprocParams()
     input_image = np.asarray(input_image)
+    backend = raster_backend(backend, device)
 
     if backend == "device":
         from ..ops import device as eng
@@ -241,205 +270,62 @@ def preprocess_device_packed(input_image, despeckle_amt: int = DESPECKLE_AMT,
     return image_bin, PackedPage(packed_eroded, W2, proj), angle
 
 
-def preprocess_stream(images, backend: str = "host",
-                      despeckle_amt: int = DESPECKLE_AMT,
-                      filter_runs: int = 1, filter_runs_amt: int = 2,
-                      correct_rotation: bool = True,
-                      params: PreprocParams | None = None,
-                      skew: str = "auto", depth: int = 8, device=None):
-    """Yield ``preprocess_images(...)`` results for a stream of pages,
-    overlapping each page's skew search with the next pages' host raster
-    when an accelerator is available.
-
-    On the hybrid backend with the native engine and a live accelerator
-    (``skew="auto"``; force with "device"/"host"), each page runs as:
-    native stage 1 (host) -> :mod:`..ops.skew_device` search (ONE async
-    accelerator dispatch, ~1.4 ms of host pack+upload instead of ~6 ms of
-    host shear rounds) -> native rotate+erode (host). Up to ``depth``
-    skew searches stay in flight, so the accelerator latency hides under
-    the following folios' host work — which is why this is a *stream* API:
-    the sequential ``preprocess_images`` path would expose the full
-    dispatch round trip per page. Results are bit-identical to
-    ``preprocess_images`` on every path (the device search replays the
-    same Q16 grids and exact integer criterion; tested).
-    """
-    images = list(images)
-    use_device_skew = False
-    if backend == "hybrid" and correct_rotation and len(images) > 1:
-        from ..ops import host_native, skew_device
-
-        if skew == "device" or (skew == "auto"
-                                and skew_device.enabled(device)):
-            use_device_skew = host_native.available()
-    if not use_device_skew:
-        for raw in images:
-            yield preprocess_images(
-                raw, despeckle_amt=despeckle_amt, filter_runs=filter_runs,
-                filter_runs_amt=filter_runs_amt,
-                correct_rotation=correct_rotation, backend=backend,
-                params=params, device=device,
-            )
-        return
-
-    from collections import deque
-
-    from ..ops import host_native as hn
-    from ..ops.skew_device import GroupedSkewWorker
-
-    p = params or PreprocParams()
-    pend: deque = deque()
-    n = len(images)
-    worker = GroupedSkewWorker(device=device)
-
-    def _enqueue(i):
-        img, runs, n_runs = hn.preprocess_page_phase1(
-            np.asarray(images[i]), despeckle_amt, p.sat_area_thresh,
-            sat_area=p.sat_filter_area,
-        )
-        pend.append((img, runs, n_runs, worker.put(img)))
-
-    try:
-        # lookahead window: a page's angle is only dispatched at its
-        # group boundary and then rides one grouped pull (~25 ms), so the
-        # window must span ~2 groups of host raster for the pull to hide
-        for i in range(min(depth, n)):
-            _enqueue(i)
-        nxt = min(depth, n)
-        if nxt == n:
-            worker.finish()
-        while pend:
-            if nxt < n:  # keep the accelerator fed before blocking
-                _enqueue(nxt)
-                nxt += 1
-                if nxt == n:
-                    worker.finish()
-            img, runs, n_runs, slot = pend.popleft()
-            angle = worker.angle(slot)
-            image_bin, image_eroded = hn.preprocess_page_phase2(
-                img, runs, n_runs, angle, filter_runs, filter_runs_amt,
-                correct_rotation,
-            )
-            yield image_bin, image_eroded, angle
-    finally:
-        # abandoned mid-stream (caller error, generator close): flush so
-        # the collector thread always terminates instead of leaking
-        worker.finish()
+def raster_page(input_image, backend: str = "host",
+                despeckle_amt: int = DESPECKLE_AMT,
+                params: PreprocParams | None = None, device=None):
+    """:func:`preprocess_images` with the eroded page left where its
+    engine keeps it, for :func:`identify_text_lines`: on the card
+    (:func:`raster_backend` gives ``"device"``) a :class:`PackedPage` on
+    ``device`` (:func:`preprocess_device_packed`), else a numpy page.
+    Returns (image_bin numpy, eroded, angle)."""
+    if raster_backend(backend, device) == "device":
+        return preprocess_device_packed(input_image, despeckle_amt,
+                                        params=params, device=device)
+    return preprocess_images(input_image, despeckle_amt=despeckle_amt,
+                             backend=backend, params=params, device=device)
 
 
 def raster_stream(images, backend: str = "host",
                   despeckle_amt: int = DESPECKLE_AMT,
-                  params: PreprocParams | None = None,
-                  skew: str = "auto", depth: int = 8,
-                  want_packed: bool = False, device=None):
+                  params: PreprocParams | None = None, device=None):
     """Yield the whole per-folio raster — ``(image_bin, angle, strips,
     peaks)`` — for a stream of pages: the batched pipeline's stage-1 loop
-    (parallel/batch.py).
+    (parallel/batch.py), on the engine :func:`raster_backend` picks for
+    ``device``.
 
-    On the hybrid backend with the native engine, the page lives in the
-    RUN domain end to end: stage 1 exports runs, the skew upload packs
-    bits straight from them (no page re-read), rotation emits rotated
-    runs alongside the pixel page, the erode + row projection + separator
-    -masked CC stats all run on runs — the eroded pixel page is never
-    materialized, saving ~3 full-page passes on the one-core host. The
-    device skew search engages exactly as in :func:`preprocess_stream`.
-    Results are bit-identical to preprocess_images + identify_text_lines
-    on every path (tested). ``want_packed=True`` appends a fifth element
-    per folio: the rotated binarized page as (H2, ceil(W2/32)) int32
-    little-endian bit rows (the packed-page OCR feed's upload; packed
-    from the rotated run list on the native path, np.packbits
-    otherwise). ``device``: the torch device of the skew search and of
-    ``backend="device"``, which runs :func:`preprocess_images` and
-    :func:`identify_text_lines` on it page by page (None: the card)."""
-    images = list(images)
+    On the card each page runs :func:`raster_page`, its eroded page staying
+    packed on the device for the line finder. On the native engine
+    (``"hybrid"`` on a CPU device) the page lives in the RUN domain end to
+    end: stage 1 exports runs, rotation emits rotated runs alongside the
+    pixel page, the erode + row projection + separator-masked CC stats all
+    run on runs — the eroded pixel page is never materialized, saving ~3
+    full-page passes on the one-core host. Results are bit-identical to
+    preprocess_images + identify_text_lines on every engine (tested)."""
     p = params or PreprocParams()
-    fused = False
+    backend = raster_backend(backend, device)
     if backend == "hybrid":
         from ..ops import host_native as hn
 
-        fused = hn.available()
-    if not fused:
-        if backend == "device":
-            # the eroded page stays packed on the device for
-            # identify_text_lines
-            stream = (preprocess_device_packed(raw, despeckle_amt,
-                                               params=p, device=device)
-                      for raw in images)
-        else:
-            stream = preprocess_stream(images, backend=backend,
-                                       despeckle_amt=despeckle_amt,
-                                       params=p, skew=skew, depth=depth,
-                                       device=device)
-        for image_bin, image_eroded, angle in stream:
-            strips, peaks, _ = identify_text_lines(
-                image_bin, image_eroded, backend=backend, params=p,
-                verbose=False, device=device)
-            if want_packed:
-                yield image_bin, angle, strips, peaks, _pack_page_np(
-                    image_bin)
-            else:
-                yield image_bin, angle, strips, peaks
-        return
-
-    from ..ops import host_native as hn
-    from ..ops import skew_device
-
-    use_device_skew = len(images) > 1 and (
-        skew == "device" or (skew == "auto" and skew_device.enabled(device)))
-
-    def _finish(img, runs, n_runs, angle):
-        out = hn.preprocess_page_phase2_runs(
-            img, runs, n_runs, angle, correct_rotation=True,
-            want_packed=want_packed)
-        image_bin, eruns, en, proj = out[:4]
-        strips, peaks, _ = identify_text_lines_runs(
-            image_bin, eruns, en, proj, params=p, verbose=False)
-        if want_packed:
-            return image_bin, float(angle), strips, peaks, out[4]
-        return image_bin, float(angle), strips, peaks
-
-    if not use_device_skew:
-        for raw in images:
-            img, runs, n_runs = hn.preprocess_page_phase1(
-                np.asarray(raw), despeckle_amt, p.sat_area_thresh,
-                sat_area=p.sat_filter_area)
-            angle = hn.rotation_angle_projections(
-                img, -6, 6, runs_n=(runs, n_runs))
-            yield _finish(img, runs, n_runs, angle)
-        return
-
-    from collections import deque
-
-    from ..ops.skew_device import GroupedSkewWorker
-
-    pend: deque = deque()
-    n = len(images)
-    worker = GroupedSkewWorker(device=device)
-
-    def _enqueue(i):
-        img, runs, n_runs = hn.preprocess_page_phase1(
-            np.asarray(images[i]), despeckle_amt, p.sat_area_thresh,
-            sat_area=p.sat_filter_area)
-        slot = worker.put_runs(runs, n_runs, img.shape[0], img.shape[1])
-        pend.append((img, runs, n_runs, slot))
-
-    try:
-        # same 2-group lookahead window as preprocess_stream
-        for i in range(min(depth, n)):
-            _enqueue(i)
-        nxt = min(depth, n)
-        if nxt == n:
-            worker.finish()
-        while pend:
-            if nxt < n:  # keep the accelerator fed before blocking
-                _enqueue(nxt)
-                nxt += 1
-                if nxt == n:
-                    worker.finish()
-            img, runs, n_runs, slot = pend.popleft()
-            angle = worker.angle(slot)
-            yield _finish(img, runs, n_runs, angle)
-    finally:
-        worker.finish()
+        if hn.available():
+            for raw in images:
+                img, runs, n_runs = hn.preprocess_page_phase1(
+                    np.asarray(raw), despeckle_amt, p.sat_area_thresh,
+                    sat_area=p.sat_filter_area)
+                angle = hn.rotation_angle_projections(
+                    img, -6, 6, runs_n=(runs, n_runs))
+                image_bin, eruns, en, proj = hn.preprocess_page_phase2_runs(
+                    img, runs, n_runs, angle, correct_rotation=True)
+                strips, peaks, _ = identify_text_lines_runs(
+                    image_bin, eruns, en, proj, params=p, verbose=False)
+                yield image_bin, float(angle), strips, peaks
+            return
+    for raw in images:
+        image_bin, eroded, angle = raster_page(raw, backend, despeckle_amt,
+                                               p, device)
+        strips, peaks, _ = identify_text_lines(
+            image_bin, eroded, backend=backend, params=p, verbose=False,
+            device=device)
+        yield image_bin, angle, strips, peaks
 
 
 def _device_table(table, count) -> np.ndarray:
@@ -470,9 +356,11 @@ def identify_text_lines(image_bin, image_eroded, backend: str = "host",
     """Find text lines (textAlignPreprocessing.py:198-285).
 
     Returns (line_strips, peak_locations, smoothed_projection).
-    ``device``: the torch device of ``backend="device"`` (None: the card).
+    ``device``: the torch device of ``backend="device"`` (None: the card),
+    which also decides the engine of ``"hybrid"`` (:func:`raster_backend`).
     """
     p = params or PreprocParams()
+    backend = raster_backend(backend, device)
 
     if isinstance(image_eroded, PackedPage):
         project = image_eroded.proj
@@ -628,13 +516,3 @@ def _lines_from_projection(image_bin, project, table_fn, p: PreprocParams,
         line_strips.append(LineStrip(strip, ulx, uly))
 
     return line_strips, peak_locations, smoothed_projection
-
-
-def _pack_page_np(image_bin) -> np.ndarray:
-    """(H, W) bool -> (H, ceil(W/32)) int32 little-endian bit rows (the
-    numpy fallback for the packed-page OCR feed)."""
-    a = np.asarray(image_bin)
-    H, W = a.shape
-    bits = np.zeros((H, -(-W // 32) * 4), np.uint8)
-    bits[:, : (W + 7) // 8] = np.packbits(a, axis=1, bitorder="little")
-    return bits.view(np.int32)

@@ -9,13 +9,14 @@ line spacing quirk.
 
 Stages:
 - raster and line segmentation: :mod:`.preprocess`, the port's copy of the
-  JAX package's code: the numpy oracle on "host", and on "device"
-  :mod:`..ops.device` on ``device`` (the CC kernels, the rotate + erode +
-  project kernel and torch ops), the eroded page staying packed on the
-  device for the line finder; ``backend="hybrid"`` takes the device
-  raster on a CUDA card and the native C++ engine on a CPU device
-  (:func:`raster_backend`; the pages are bit-identical), and a
-  ``ta.raster.card`` span marks a folio rastered on the card;
+  JAX package's code, which picks the engine from ``backend`` and
+  ``device`` (:func:`.preprocess.raster_backend`): the numpy oracle on
+  "host", and on "device", or "hybrid" on a CUDA card, :mod:`..ops.device`
+  on ``device`` (the CC kernels, the rotate + erode + project kernel and
+  torch ops), the eroded page staying packed on the device for the line
+  finder; "hybrid" on a CPU device takes the native C++ engine (the pages
+  are bit-identical). A ``ta.raster.card`` span marks a folio rastered on
+  the card;
 - OCR: the port's :class:`..models.recognizer.SeqRecognizer` on ``device``,
   normalizing lines on the device when that device is a CUDA card;
 - NW alignment: the port's ``perform_alignment``. ``backend="hybrid"``
@@ -58,8 +59,9 @@ from .preprocess import (
     SAT_AREA_THRESH_AREA,
     PreprocParams,
     identify_text_lines,
-    preprocess_device_packed,
     preprocess_images,
+    raster_page,
+    rasters_on_card,
 )
 
 MEDIAN_LINE_MULT = 2  # threaded but unused, as in the reference
@@ -83,18 +85,6 @@ def _normalizes_on_device(ocropus_model, backend, device) -> bool:
     if isinstance(ocropus_model, str):
         return backend in ("hybrid", "device") and device.type == "cuda"
     return bool(getattr(ocropus_model, "normalize_on_device", False))
-
-
-def raster_backend(backend, device) -> str:
-    """The raster engine of ``process()``'s preprocess and line finding
-    for ``backend`` on ``device``. On a CUDA card ``"hybrid"`` rasters on
-    the card, as ``"device"`` does (:mod:`..ops.device`, bit-identical to
-    the native engine), by the rule that :func:`_normalizes_on_device`
-    applies to the normalizer; a CPU device keeps the native engine, and
-    ``"host"`` and ``"device"`` are their own."""
-    if backend == "hybrid" and device.type == "cuda":
-        return "device"
-    return backend
 
 
 def _resolve_recognizer(ocropus_model, backend, device):
@@ -186,38 +176,33 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
         preproc_params = replace(pp, sat_filter_area=True)
 
     # -- PRE-PROCESSING --
-    raster = raster_backend(backend, device)
-    on_card = raster == "device" and device.type == "cuda" and (
+    on_card = rasters_on_card(backend, device) and (
         existing_preproc_images is None or existing_lines is None)
     with span("ta.raster.card") if on_card else contextlib.nullcontext():
         if existing_preproc_images is not None:
             image, eroded, angle = existing_preproc_images
         else:
             with timer("preprocess"):
-                def _run_preproc():
-                    return preprocess_images(raw_image, backend=raster,
-                                             params=preproc_params,
-                                             device=device)
-
                 if stage_cache is not None:
                     image, eroded, angle = stage_cache.cached(
                         "preproc",
                         content_key(CACHE_NAMESPACE, "preproc", raw_image,
                                     repr(preproc_params), backend),
-                        _run_preproc)
-                elif raster == "device":
-                    # the eroded page stays packed on the device for the
-                    # line finder
-                    image, eroded, angle = preprocess_device_packed(
-                        raw_image, params=preproc_params, device=device)
+                        lambda: preprocess_images(
+                            raw_image, backend=backend,
+                            params=preproc_params, device=device))
                 else:
-                    image, eroded, angle = _run_preproc()
+                    # on the card the eroded page stays packed there for
+                    # the line finder
+                    image, eroded, angle = raster_page(
+                        raw_image, backend, params=preproc_params,
+                        device=device)
         if existing_lines is not None:
             cc_strips, lines_peak_locs = existing_lines
         else:
             with timer("identify_lines"):
                 cc_strips, lines_peak_locs, _ = identify_text_lines(
-                    image, eroded, backend=raster, verbose=verbose,
+                    image, eroded, backend=backend, verbose=verbose,
                     params=preproc_params, device=device)
 
     # -- OCR --
