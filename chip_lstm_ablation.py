@@ -49,7 +49,7 @@ def build() -> dict:
         L = ctypes.CDLL(so)
         p, i = ctypes.c_void_p, ctypes.c_int
         L.ta_lstm_scan.restype = i
-        L.ta_lstm_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        L.ta_lstm_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         libs[name] = L
     return libs
 
@@ -79,7 +79,6 @@ def main() -> int:
     libs = build()
     tl.pin_float32()
     dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(0)
     for B, T in SHAPES:
@@ -89,7 +88,7 @@ def main() -> int:
         lens = torch.full((B,), T, dtype=torch.int32, device=dev)
         gx, whT, peep = tl.scan_inputs(p, xs, lens)
         out = torch.empty((2, T, B, NS), device=dev)
-        bt = lk.launch_plan(B, NS, sms)
+        bt = lk.card_plan(B, NS, dev)
         row = []
         for name, L in libs.items():
 
@@ -97,7 +96,8 @@ def main() -> int:
                 _kernels.check(L.ta_lstm_scan(
                     gx.data_ptr(), whT.data_ptr(), peep.data_ptr(),
                     out.data_ptr(), T, B, NS, lk.quads(NS), bt,
-                    dev.index or 0, stream), f"{name} launch")
+                    lk.cluster_size(NS, bt), dev.index or 0, stream),
+                    f"{name} launch")
 
             ms = time_ms(launch)
             row.append(f"{name} {ms:.3f} ms ({ms * 1e3 / T:.3f} us a step)")

@@ -437,13 +437,16 @@ def lstm_work(gx, lengths):
 
 
 def lstm_plan_line(B, ns, dev, bt):
-    """The batch tile, the CTAs and what the compiler made of the
+    """The batch tile, the clusters and what the compiler made of the
     instantiation: threads, registers, spills, Wh quads in registers and
-    shared bytes. A tile is one CTA: no cluster (K = 1)."""
+    shared bytes. A narrow tile is one CTA (K = 1); a wide one a cluster of
+    K CTAs, of which the card holds ``active`` at once."""
     a = lk.kernel_attrs(ns, bt, dev)
     check(a["threads"] <= a["max_threads"], f"lstm_scan: {a['threads']} "
           f"threads over the instantiation's {a['max_threads']}")
-    return (f"plan bt={bt} K=1: {2 * -(-B // bt)} CTAs of {a['threads']} "
+    return (f"plan bt={bt} K={a['cluster']}: {2 * -(-B // bt)} clusters "
+            f"(the card holds {a['active_clusters']} at once) of "
+            f"{a['cluster']} CTAs of {a['threads']} "
             f"threads, {a['regs']} registers a thread, {a['local_bytes']} "
             f"spill bytes, Wh quads in registers {a['quads_in_registers']} "
             f"and in global memory {a['quads_in_global']} of "
@@ -455,8 +458,7 @@ def lstm_case(params, frames, lengths, dev, alt_tiles=()):
     frames; ms of the other batch tiles given."""
     gx, whT, peep = tl.scan_inputs(params, frames, lengths)
     _, T, B, G = gx.shape
-    bt = lk.launch_plan(
-        B, NS, torch.cuda.get_device_properties(dev).multi_processor_count)
+    bt = lk.card_plan(B, NS, dev)
     got = bidir_scan_cuda(gx, whT, peep)
     ref = bidir_scan_reference(gx, whT, peep)
     torch.cuda.synchronize()
@@ -531,8 +533,7 @@ def phase_lstm_wide(fi, dev):
           f"{LSTM_BAR}")
     gx, whT, peep = tl.scan_inputs(params, frames, lengths)
     _, T, B, _ = gx.shape
-    bt = lk.launch_plan(
-        B, WIDE_NS, torch.cuda.get_device_properties(dev).multi_processor_count)
+    bt = lk.card_plan(B, WIDE_NS, dev)
     ms = cuda_ms(lambda: bidir_scan_cuda(gx, whT, peep), 5)
     lstm = torch.nn.LSTM(NI, WIDE_NS, bidirectional=True,
                          batch_first=True).to(dev)
@@ -740,7 +741,7 @@ def phase_kraken(page, inks, codec, dev, n_runs=3):
     with torch.no_grad():
         library_ms = median_ms(lambda: lstm(xs))
     b = bound(*lstm_work(gx, n))
-    bt = lk.launch_plan(B, ns, sms)
+    bt = lk.card_plan(B, ns, dev)
     print(f"lstm_scan kraken: layer 1 of 3, ns={ns} NQ={lk.quads(ns)} "
           f"nin={xs.shape[2]} B={B} T={T} valid frames {n.tolist()} "
           f"{lstm_plan_line(B, ns, dev, bt)}; max_abs_err={err:.3e} over "

@@ -66,6 +66,10 @@ def cuda():
     (96, 8, 48, 256, None),        # bt = 2 on the wide route
     (3, 12, 48, 300, None),        # two unit groups, a padded quad
     (5, 10, 48, 300, 4),           # a ragged wide tile
+    (12, 176, 48, 200, None),      # kraken's folio bucket: clusters of 4
+    (128, 16, 48, 200, None),      # bt > 1 at ns = 200, past one wave
+    (5, 20, 48, 200, 4),           # a ragged tile in a cluster
+    (2, 4, 48, 4096, None),        # clusters of 8, the leftover global tier
 ])
 def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns, bt):
     rng = np.random.default_rng(B + T)
@@ -86,20 +90,37 @@ def test_lstm_scan_kernel_matches_plain(cuda, B, T, ni, ns, bt):
 @pytest.mark.parametrize("B", [8, 12, 16, 32, 64, 96, 128])
 def test_lstm_scan_plan_fits(cuda, B, ns):
     """For every batch the recognizer plans, the chosen instantiation's
-    CTA fits the card: its grid one wave where a tile allows it, its
+    CTA fits the card: its clusters one wave where a tile allows it (a
+    narrow tile is a cluster of one, and the card holds one an SM), its
     threads within the instantiation's limit, its registers within a
     thread's share of one SM sub-partition (16,384 registers for
     ceil(warps / 4) warps), its shared memory within a block's."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    bt = lk.launch_plan(B, ns, sms)
+    bt = lk.card_plan(B, ns, cuda)
     a = lk.kernel_attrs(ns, bt, cuda)
-    assert bt == lk.tiles(ns)[-1] or 2 * -(-B // bt) <= sms
-    assert a["threads"] == -(-4 * ns // 32) * 32 <= a["max_threads"]
+    assert a["cluster"] == lk.cluster_size(ns, bt)
+    assert (a["active_clusters"] == sms if ns <= 128
+            else a["active_clusters"] >= 1)
+    assert bt == lk.tiles(ns)[-1] or 2 * -(-B // bt) <= a["active_clusters"]
+    assert a["threads"] == lk.cta_threads(ns, a["cluster"]) <= a["max_threads"]
     assert a["regs"] * 32 * -(-a["threads"] // 32 // 4) <= 16384
     assert a["shared_bytes"] <= _kernels.SMEM_LIMIT
     assert 0 <= a["quads_in_registers"] <= lk.quads(ns)
     assert (a["quads_in_global"] == 0 if ns <= 128
             else 0 <= a["quads_in_global"] < lk.quads(ns))
+
+
+def test_lstm_scan_wide_holds_wh_on_chip(cuda):
+    """kraken's width, ns = 200, at the folio's tile: a cluster of 4 CTAs
+    holds one direction's Wh on chip (at bt = 1 a thread's whole column in
+    registers), no quad of a column is read from global memory in the step
+    loop, and the card holds the folio's 2 x 12 clusters at once."""
+    a = lk.kernel_attrs(200, 1, cuda)
+    assert a["cluster"] == 4 == lk.cluster_size(200, 1)
+    assert a["quads_in_global"] == 0
+    assert a["quads_in_registers"] == lk.quads(200)
+    assert a["threads"] == 224 and a["regs"] <= 255
+    assert a["active_clusters"] >= 24
 
 
 @pytest.mark.parametrize("B,Hp,Wp,kind", TAIL_CASES)

@@ -17,6 +17,7 @@ from text_alignment_tpu_torch.models import lstm_kernel as lk
 from text_alignment_tpu_torch.models.lstm_kernel import (
     bidir_scan, bidir_scan_reference)
 from text_alignment_tpu_torch.models.recognizer import SeqRecognizer
+from text_alignment_tpu_torch._kernels import SMEM_LIMIT
 
 torch.set_num_threads(1)
 
@@ -153,11 +154,14 @@ def test_kernel_launch_plan(B):
 
 def test_kernel_launch_plan_refuses_what_cannot_fit():
     """ns over 128 takes the wide route: NQ = ceil(ns / 4), tiles 1/2/4,
-    the smallest whose grid fits one wave, up to the widest ns whose h and
-    c buffers fit a block; a batch tile the kernel is not built for (bt = 8
-    at ns = 128, whose Wh would overflow a block's shared memory, or at a
-    wide ns) is refused before a launch; a batch past one wave takes the
-    largest tile; the small widths share the ns = 100 instantiation."""
+    the smallest whose clusters the card holds at once, up to the widest
+    ns whose h and c buffers fit a block; a batch tile the kernel is not
+    built for (bt = 8 at ns = 128, whose Wh would overflow a block's shared
+    memory, or at a wide ns) is refused before a launch; a batch past one
+    wave takes the largest tile; the small widths share the ns = 100
+    instantiation. A wide tile is a cluster of the fewest CTAs (up to 8)
+    whose shared memory holds their columns of Wh; a narrow tile is one
+    CTA."""
     assert lk.quads(12) == lk.quads(100) == 25 and lk.quads(128) == 32
     assert lk.quads(129) == 33 and lk.quads(160) == 40
     assert lk.quads(256) == 64 and lk.quads(300) == 75
@@ -166,19 +170,91 @@ def test_kernel_launch_plan_refuses_what_cannot_fit():
     assert lk.tiles(19368) == (1,)
     with pytest.raises(ValueError):
         lk.tiles(19369)
+    assert lk.cluster_size(12, 1) == lk.cluster_size(100, 8) == 1
+    assert lk.cluster_size(128, 4) == 1
+    assert lk.cluster_size(129, 1) == lk.cluster_size(160, 4) == 2
+    assert lk.cluster_size(200, 1) == lk.cluster_size(200, 4) == 4
+    assert lk.cluster_size(256, 1) == lk.cluster_size(300, 2) == 8
+    # past what 8 CTAs hold: the widest cluster, the rest from global memory
+    assert lk.cluster_size(4096, 1) == lk.cluster_size(19368, 1) == 8
+    assert lk.cta_threads(100, 1) == 416 and lk.cta_threads(128, 1) == 512
+    assert lk.cta_threads(129, 2) == 288 and lk.cta_threads(200, 4) == 224
+    assert lk.cta_threads(4096, 8) == 1024  # 512 units: two unit groups
     assert lk.launch_plan(12, 129, H100_SMS) == 1
-    assert lk.launch_plan(12, 256, H100_SMS) == 1
-    assert lk.launch_plan(96, 256, H100_SMS) == 2
+    # 24 clusters of 8 are over the 16 of 132 SMs: two rows a CTA
+    assert lk.launch_plan(12, 256, H100_SMS) == 2
+    assert lk.launch_plan(96, 256, H100_SMS) == 4
     assert lk.launch_plan(4096, 300, H100_SMS) == 4
     assert lk.launch_plan(4096, 100, H100_SMS) == 8
     assert lk.launch_plan(4096, 128, H100_SMS) == 4
     assert lk.launch_plan(96, 100, 48) == 4  # a card of fewer SMs
+    assert lk.launch_plan(12, 200, H100_SMS) == 1  # kraken's folio
+    assert lk.launch_plan(128, 200, H100_SMS) == 4
+    # a card that holds fewer clusters at once than its SMs make room for
+    assert lk.launch_plan(12, 200, H100_SMS, lambda bt: 12) == 2
+    assert lk.launch_plan(12, 200, H100_SMS, lambda bt: 0) == 4
     for ns, bt in ((100, 3), (100, 16), (4, 0), (128, 8), (160, 8),
-                   (300, 3)):
+                   (300, 3), (200, 8)):
         gx = torch.zeros((2, 3, 4, 4 * ns), device="meta")
         with pytest.raises(ValueError):
             lk.bidir_scan_cuda(gx, torch.zeros((2, ns, 4 * ns), device="meta"),
                                torch.zeros((2, 3, ns), device="meta"), bt=bt)
+
+
+WIDE_NS = (129, 160, 200, 256, 300, 4096)
+# The clusters of C CTAs an H100 SXM holds at once with the wide route's
+# shared memory, one CTA an SM (the card's cudaOccupancyMaxActiveClusters,
+# kernel_attrs' active_clusters): the limit the plan is held to here.
+H100_ACTIVE = {2: 66, 4: 32, 8: 16}
+
+
+def _cta_bytes(ns, bt, c):
+    """Shared bytes a CTA of a cluster of c takes to hold its units'
+    columns of Wh, each padded to whole quads of 16 bytes, a column for
+    each of 4 lanes a unit in whole warps (a CTA of more than 1024 lanes
+    walks its units in groups of 256, a slot each), and the tile's h
+    (two buffers) and c rows."""
+    nq = -(-ns // 4)
+    lanes = 4 * -(-ns // c)
+    slots = -(-lanes // 32) * 32 if lanes <= 1024 else 1024 * -(-lanes // 1024)
+    return 16 * nq * slots + 3 * 4 * bt * 4 * nq
+
+
+@pytest.mark.parametrize("ns", WIDE_NS)
+@pytest.mark.parametrize("B", [8, 12, 16, 32, 64, 96, 128])
+def test_wide_plan_holds_wh_in_a_cluster(B, ns):
+    """Across the pack ladder and the wide widths, on an H100's SMs and
+    its assumed cluster limit: the plan's cluster is the fewest CTAs whose
+    shared memory holds one direction's Wh wherever 8 can (else 8, with
+    the rest of each column read from global memory), its 2 * ceil(B / bt)
+    clusters fit the limit unless no tile does (then the largest tile),
+    no smaller tile would have fit, and the narrow plan at ns = 100 and
+    128 is the one-CTA-an-SM plan it always was."""
+    def active(bt):
+        return H100_ACTIVE[lk.cluster_size(ns, bt)]
+
+    bt = lk.launch_plan(B, ns, H100_SMS, active)
+    c = lk.cluster_size(ns, bt)
+    assert bt in lk.tiles(ns) and c in H100_ACTIVE
+    if _cta_bytes(ns, bt, 8) <= SMEM_LIMIT:
+        assert _cta_bytes(ns, bt, c) <= SMEM_LIMIT
+        assert _cta_bytes(ns, bt, c // 2) > SMEM_LIMIT
+    else:
+        assert c == 8
+    assert lk.cta_threads(ns, c) <= 1024
+
+    def fits(t):
+        return 2 * -(-B // t) <= active(t)
+
+    assert fits(bt) or bt == lk.tiles(ns)[-1]
+    assert not any(fits(t) for t in lk.tiles(ns) if t < bt)
+    if ns == 200:  # kraken's width: the same cluster at every tile
+        assert {lk.cluster_size(ns, t) for t in lk.tiles(ns)} == {4}
+    for narrow in (100, 128):
+        ts = lk.tiles(narrow)
+        want = next((t for t in ts if 2 * -(-B // t) <= H100_SMS), ts[-1])
+        assert lk.launch_plan(B, narrow, H100_SMS) == want
+        assert {lk.cluster_size(narrow, t) for t in ts} == {1}
 
 
 def test_wrapper_refuses_unknown_devices():

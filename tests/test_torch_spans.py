@@ -1,8 +1,9 @@
 """The port's spans on the CPU: ``utils.timing.span`` and the ``ta.nw.*``
 spans of the NW path's entry points under ``torch.profiler``, the
 ``ta.ocr.*`` spans of kraken's VGSL network (one recurrence in each
-layer's span), the no-op that ``span`` is when no profiler records, and
-the ``ta.stage.*`` span of ``StageTimer``."""
+layer's span), the no-op that ``span`` is when no profiler records, the
+``ta.stage.*`` span of ``StageTimer``, and the ``ta.lstm.cluster`` span
+of the recurrence's wide launches."""
 
 import functools
 import random
@@ -199,3 +200,38 @@ def test_vgsl_spans_in_their_order_and_three_scans_a_batch(monkeypatch):
 def test_no_vgsl_range_without_a_profiler(monkeypatch):
     monkeypatch.setattr(timing, "_range", _no_range)
     run_vgsl()
+
+
+@pytest.mark.parametrize("ns", [100, 128, 200, 256])
+def test_cluster_span_around_each_wide_launch(monkeypatch, ns):
+    """``models.lstm_kernel.bidir_scan_cuda`` opens one ``ta.lstm.cluster``
+    span (not a user annotation) around a launch in clusters of more than
+    one CTA (the wide route) and none around a narrow launch, and hands the
+    library the cluster size of its plan. The library and the stream are
+    stood in for, so the wrapper runs on meta tensors."""
+    from text_alignment_tpu_torch import _kernels
+    from text_alignment_tpu_torch.models import lstm_kernel as lk
+
+    clusters = []
+
+    class Library:
+        def ta_lstm_scan(self, *args):
+            clusters.append(args[9])
+            with timing.span("ta.test.launch"):
+                return 0
+
+    monkeypatch.setattr(_kernels, "lib", Library)
+    monkeypatch.setattr(_kernels, "stream_handle", lambda device: 0)
+    gx = torch.zeros((2, 3, 4, 4 * ns), device="meta")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for bt in (1, 2):
+            lk.bidir_scan_cuda(gx, torch.zeros((2, ns, 4 * ns), device="meta"),
+                               torch.zeros((2, 3, ns), device="meta"), bt=bt)
+    spans = spans_of(prof)
+    cluster = [s for s in spans if s[0] == "ta.lstm.cluster"]
+    launches = [s for s in spans if s[0] == "ta.test.launch"]
+    assert clusters == [lk.cluster_size(ns, 1), lk.cluster_size(ns, 2)]
+    assert len(cluster) == (2 if ns > 128 else 0)
+    assert not any(s[3] for s in cluster)
+    for (_, s, e, _), (_, t0, t1, _) in zip(cluster, launches):
+        assert s <= t0 <= t1 <= e

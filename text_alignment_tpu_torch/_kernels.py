@@ -129,9 +129,9 @@ def lib():
         L.ta_error_string.restype = ctypes.c_char_p
         L.ta_error_string.argtypes = [i]
         L.ta_lstm_scan.restype = i
-        L.ta_lstm_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        L.ta_lstm_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         L.ta_lstm_scan_attrs.restype = i
-        L.ta_lstm_scan_attrs.argtypes = [i, i, i, i, p]
+        L.ta_lstm_scan_attrs.argtypes = [i, i, i, i, i, p]
         L.ta_lineest_tail_plan.restype = i
         L.ta_lineest_tail_plan.argtypes = [i, i, i, i, i, p]
         L.ta_lineest_tail.restype = i
