@@ -10,7 +10,8 @@ Usage:
     python -m text_alignment_tpu_torch verify-reference --assets DIR
     python -m text_alignment_tpu_torch lines page.png --out-dir lines
     python -m text_alignment_tpu_torch gtedit html --lines-dir lines
-    python -m text_alignment_tpu_torch train --lines-dir lines
+    python -m text_alignment_tpu_torch train --lines-dir lines \
+        [--network kraken]
 
 Counterpart of ``text_alignment_tpu/cli.py``: ``align`` (the folio-at-a-
 time loop, with ``--cache-dir`` the content-addressed stage cache, and with
@@ -19,7 +20,8 @@ rasters on the card as the folio loop does),
 ``serve`` (the spool-directory server), ``evaluate`` (IoU evaluation and
 the scoring grid search), ``mei``, ``verify-reference``, and the training
 workflow: ``lines`` (per-line training crops), ``gtedit`` (the correction
-page and its ground truth) and ``train`` (the CTC trainer). The card is
+page and its ground truth) and ``train`` (the CTC trainer of ocropy's
+BiLSTM, or with ``--network kraken`` of kraken's VGSL network). The card is
 the default device of every subcommand, which raises without one;
 ``--device cpu`` runs on the CPU. ``lines`` and ``gtedit extract`` do
 their work on the host whatever the device. ``TEXT_ALIGNMENT_TPU_TAIL=
@@ -315,9 +317,12 @@ def cmd_mei(args):
 
 
 def cmd_train(args):
+    from .models import vgsl
     from .models.codec import Codec
-    from .models.lineest_host import normalize_strip
-    from .models.train import Trainer, batch_lines
+    from .models.lineest_host import CenterNormalizer, normalize_strip
+    from .models.train import Trainer, VGSLTrainer, batch_lines
+
+    kraken = args.network == "kraken"
 
     # fail on a missing checkpoint dir BEFORE the training run, not at the
     # first save
@@ -351,7 +356,8 @@ def cmd_train(args):
             # empty-transcription CTC pair that degrades the model
             print(f"skipping {img_path}: empty ground truth")
             continue
-        norm = normalize_strip(_load_image(img_path))
+        norm = normalize_strip(_load_image(img_path), CenterNormalizer(
+            vgsl.HEIGHT if kraken else 48))
         if norm is None:
             continue
         frames.append(norm[0])
@@ -361,21 +367,25 @@ def cmd_train(args):
                 charset.append(ch)
 
     if args.resume:
-        trainer = Trainer.load_state(args.resume, device=args.device)
+        trainer = (VGSLTrainer if kraken else Trainer).load_state(
+            args.resume, device=args.device)
         codec = trainer.codec
         missing = sorted(set(charset) - set(codec.charset))
         if missing:
             print(f"training data contains characters absent from the "
                   f"checkpoint charset: {missing!r}")
             return 1
-        if args.hidden != trainer.ns or args.lr != trainer.lr:
+        if args.lr != trainer.lr or (not kraken and args.hidden
+                                     != trainer.ns):
             print(f"note: --hidden/--lr ignored on resume; continuing with "
-                  f"the checkpoint's ns={trainer.ns} lr={trainer.lr}")
+                  f"the checkpoint's widths and lr={trainer.lr}")
         print(f"resumed at iteration {trainer.iteration} from {args.resume}")
     else:
         codec = Codec(charset)
-        trainer = Trainer(codec, ni=48, ns=args.hidden, lr=args.lr,
-                          device=args.device)
+        trainer = (VGSLTrainer(codec, lr=args.lr, device=args.device)
+                   if kraken else
+                   Trainer(codec, ni=48, ns=args.hidden, lr=args.lr,
+                           device=args.device))
 
     rng = np.random.default_rng(0)
     T = max(len(f) for f in frames)
@@ -600,7 +610,13 @@ def main(argv=None):
     t.add_argument("--output-prefix", default="./model")
     t.add_argument("--iterations", type=int, default=10000)
     t.add_argument("--batch-size", type=int, default=16)
-    t.add_argument("--hidden", type=int, default=100)
+    t.add_argument("--network", default="ocropy",
+                   choices=["ocropy", "kraken"],
+                   help="ocropy's BiLSTM (48 rows, --hidden units) or "
+                   "kraken's default VGSL network (RECOGNITION_SPEC at its "
+                   "published widths, 120 rows; checkpoints *.vgsl.npz)")
+    t.add_argument("--hidden", type=int, default=100,
+                   help="the BiLSTM's units (ocropy's network only)")
     t.add_argument("--lr", type=float, default=1e-3)
     t.add_argument("--log-every", type=int, default=100)
     t.add_argument("--save-every", type=int, default=5000)

@@ -44,7 +44,7 @@ from .lineest import normalize_batch_device
 from .lstm import BiLSTMParams, bilstm_forward_batched, params_from_np, \
     pin_float32
 from .vgsl import VGSLNet, VGSLParams, frame_columns, kernel_params, \
-    vgsl_forward_batched
+    load_vgsl, vgsl_forward_batched
 
 _MAX_REGIONS = 512
 # the wire ships this many regions per line by default and escalates x4
@@ -171,6 +171,14 @@ class SeqRecognizer:
         params_np, codec, target_height = load_pyrnn(path)
         return cls(params_from_np(params_np), codec, target_height,
                    decode=decode, device=device)
+
+    @classmethod
+    def from_vgsl(cls, path: str, decode: str = "bestpath", device=None):
+        """kraken's network from a :func:`.vgsl.save_vgsl` file (the VGSL
+        trainer's checkpoint), at its input height."""
+        params, charset, height = load_vgsl(path)
+        return cls(params, Codec(charset), height, decode=decode,
+                   device=device)
 
     def normalize(self, strip: np.ndarray):
         lnorm = _host_lineest.CenterNormalizer(self.target_height)

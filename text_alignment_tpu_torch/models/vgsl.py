@@ -1,5 +1,5 @@
-"""kraken's default line recognizer, inference, in PyTorch, on the port's
-frames: the VGSL network of ``RECOGNITION_SPEC`` (``kraken/lib/
+"""kraken's default line recognizer, inference and training, in PyTorch,
+on the port's frames: the VGSL network of ``RECOGNITION_SPEC`` (``kraken/lib/
 default_specs.py``, https://github.com/mittagessen/kraken) with its
 output layer ``O1c<classes>``::
 
@@ -43,15 +43,32 @@ Weights (:class:`VGSLParams`) keep kraken's ``TorchVGSLModel`` layout,
 that :func:`vgsl_forward_batched` runs: each layer's two directions
 stacked, the gate chunks in the kernel's [gi | gf | go | ci] order
 (:func:`kernel_gates`) and the biases summed.
+
+Training (:class:`VGSLModel`, driven by :class:`.train.VGSLTrainer`) runs
+the same front end, :func:`conv_features` with its masks, with the spec's
+seven dropout sites active (:data:`DROPOUT`: ``Do0.1,2`` after each
+convolution and after LSTM layers 1 and 2 zeroes a whole channel of a
+line, the final ``Do`` each value with p 0.5), every mask drawn from the
+trainer's ``torch.Generator`` through :func:`dropout_mask`. Its recurrence
+is ``torch.nn.LSTM`` (cuDNN on the card), one bidirectional layer at a
+time in the weights' own layout, packed by each line's frame count, as
+kraken trains; its head gives log-probabilities. The weights it trains
+are :class:`VGSLParams`, which :class:`..recognizer.SeqRecognizer` runs
+unchanged; :func:`save_vgsl` and :func:`load_vgsl` keep them in a
+pickle-free ``.npz``.
 """
 
 from __future__ import annotations
 
+import io
+import json
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..utils.timing import span
 from .lstm import _reverse_by_length
@@ -201,14 +218,18 @@ def _mask(x, widths):
     return torch.where(keep[:, None, None, :], x, 0.0)
 
 
-def conv_features(params: VGSLNet, frames, lengths):
+def conv_features(params: VGSLNet, frames, lengths, dropout=None):
     """The conv front end and the fold: (B, T3, C * H3) features and their
-    lengths, from (B, T, height) frames of ``lengths`` valid columns."""
+    lengths, from (B, T, height) frames of ``lengths`` valid columns.
+    ``dropout``: None at inference; in training, the callable that applies
+    each convolution's dropout site to its output after the ReLU."""
     widths = lengths.long()
     x = frames.transpose(1, 2)[:, None]
     for (w, b), pooled in zip(params.conv, POOLED):
         x = F.relu(F.conv2d(_mask(x, widths), w, b,
                             padding=(w.shape[2] // 2, w.shape[3] // 2)))
+        if dropout is not None:
+            x = dropout(x)
         if pooled:
             x = F.max_pool2d(x, 2)
             widths = widths // 2
@@ -264,3 +285,171 @@ def vgsl_forward_batched(params: VGSLNet, frames, lengths):
     with span("ta.ocr.head"):
         post = torch.softmax(torch.matmul(xs, params.W.T) + params.b, dim=2)
     return post, n
+
+
+# -- training ---------------------------------------------------------------
+
+# the spec's dropout sites in the order the training forward meets them:
+# (p, dims); dims 2 zeroes a whole channel of a line (``Do0.1,2`` after
+# each convolution and after LSTM layers 1 and 2), dims 1 each value (the
+# final ``Do``, kraken's default p 0.5)
+DROPOUT = ((0.1, 2),) * 6 + ((0.5, 1),)
+
+
+def dropout_mask(shape, p: float, generator, device):
+    """A dropout mask of ``shape``: each element 0 with probability ``p``,
+    else 1 / (1 - p), from ``generator``. Every site of the training
+    forward draws its mask through this one function, in site order."""
+    keep = torch.rand(shape, generator=generator, device=device) >= p
+    return keep.to(torch.float32) / (1.0 - p)
+
+
+def mask_shape(x, dims: int) -> tuple:
+    """The mask shape of a site over ``x``: (B, C, 1, 1) of a conv output
+    or (B, 1, F) of an LSTM output for a channel of a line (dims 2), x's
+    own shape for each value (dims 1)."""
+    if dims == 1:
+        return tuple(x.shape)
+    return (x.shape[0], x.shape[1], 1, 1) if x.ndim == 4 else (
+        x.shape[0], 1, x.shape[2])
+
+
+def leaves(p: VGSLParams) -> list:
+    """Every weight tensor of ``p`` in a fixed order: each convolution's
+    weight and bias, each layer's forward then backward direction
+    (weight_ih, weight_hh, bias_ih, bias_hh), W, b."""
+    out = [t for wb in p.conv for t in wb]
+    for layer in p.lstm:
+        out += [*layer.fwd, *layer.bwd]
+    return out + [p.W, p.b]
+
+
+def from_leaves(ts, n_conv: int = len(CONVS)) -> VGSLParams:
+    """The inverse of :func:`leaves` for a network of ``n_conv``
+    convolutions."""
+    ts = list(ts)
+    rest = ts[2 * n_conv:-2]
+    return VGSLParams(
+        tuple((ts[2 * i], ts[2 * i + 1]) for i in range(n_conv)),
+        tuple(BiLSTMLayer(LSTMDirection(*rest[i:i + 4]),
+                          LSTMDirection(*rest[i + 4:i + 8]))
+              for i in range(0, len(rest), 8)),
+        ts[-2], ts[-1])
+
+
+def spec_of(p: VGSLParams, height: int) -> str:
+    """The VGSL spec string of a network of ``p``'s widths at input
+    ``height``, with its output layer: :data:`SPEC` + ``" O1c29"`` at the
+    published widths and the port's 29 classes."""
+    ops = []
+    for (w, _), pooled in zip(p.conv, POOLED):
+        ops += [f"Cr{w.shape[2]},{w.shape[3]},{w.shape[0]}", "Do0.1,2"]
+        if pooled:
+            ops.append("Mp2,2")
+    ops.append("S1(1x0)1,3")
+    for i, layer in enumerate(p.lstm):
+        ops += [f"Lbx{layer.fwd.weight_hh.shape[1]}",
+                "Do" if i == len(p.lstm) - 1 else "Do0.1,2"]
+    return f"[1,{height},0,1 {' '.join(ops)}] O1c{p.W.shape[0]}"
+
+
+class VGSLModel(torch.nn.Module):
+    """:class:`VGSLParams` as trainable parameters: the convolutions' and
+    the head's tensors, and each layer a ``torch.nn.LSTM(bidirectional=
+    True)`` holding its two directions in their own layout. Built on the
+    weights' device; :meth:`leaves` is the parameters in
+    :func:`leaves`' order."""
+
+    def __init__(self, params: VGSLParams):
+        super().__init__()
+        P = torch.nn.Parameter
+        self.convs = torch.nn.ParameterList(
+            [P(t.detach().clone()) for wb in params.conv for t in wb])
+        self.lstm = torch.nn.ModuleList()
+        for layer in params.lstm:
+            w = layer.fwd.weight_ih
+            m = torch.nn.LSTM(w.shape[1], layer.fwd.weight_hh.shape[1],
+                              bidirectional=True, batch_first=True,
+                              device=w.device, dtype=torch.float32)
+            with torch.no_grad():
+                for d, suffix in ((layer.fwd, ""), (layer.bwd, "_reverse")):
+                    for k in LSTMDirection._fields:
+                        getattr(m, f"{k}_l0{suffix}").copy_(getattr(d, k))
+            self.lstm.append(m)
+        self.head = torch.nn.ParameterList([P(params.W.detach().clone()),
+                                            P(params.b.detach().clone())])
+
+    @property
+    def conv(self) -> tuple:
+        """((weight, bias), ...), as :func:`conv_features` reads them."""
+        c = list(self.convs)
+        return tuple(zip(c[0::2], c[1::2]))
+
+    def leaves(self) -> list:
+        # registration order: the convolutions, each LSTM's weight_ih,
+        # weight_hh, bias_ih, bias_hh then their _reverse, the head
+        return list(self.parameters())
+
+    def params(self, grads: bool = False) -> VGSLParams:
+        """A detached copy of the weights or, with ``grads``, of their
+        gradients (zeros where none)."""
+        ts = self.leaves()
+        if grads:
+            ts = [torch.zeros_like(t) if t.grad is None else t.grad
+                  for t in ts]
+        return from_leaves([t.detach().clone() for t in ts], len(self.convs)
+                           // 2)
+
+    def forward(self, frames, widths, frame_counts, generator=None):
+        """Log-probabilities (B, T // 8, classes) of (B, T, height) frames
+        of ``widths`` (B,) valid columns on the frames' device;
+        ``frame_counts``: each line's ``widths // 8`` as a CPU int64
+        tensor, which packs the LSTMs' input. With a ``generator`` every
+        dropout site is active, each mask drawn through
+        :func:`dropout_mask`; without one none is (eval). Values past a
+        line's frame count are meaningless."""
+        site = iter(DROPOUT)
+
+        def drop(x):
+            if generator is None:
+                return x
+            p, dims = next(site)
+            return x * dropout_mask(mask_shape(x, dims), p, generator,
+                                    x.device)
+
+        xs, _ = conv_features(self, frames, widths, drop)
+        T3 = xs.shape[1]
+        for m in self.lstm:
+            out, _ = m(pack_padded_sequence(xs, frame_counts,
+                                            batch_first=True,
+                                            enforce_sorted=False))
+            xs = drop(pad_packed_sequence(out, batch_first=True,
+                                          total_length=T3)[0])
+        W, b = self.head
+        return torch.log_softmax(torch.matmul(xs, W.T) + b, dim=2)
+
+
+def save_vgsl(path: str, params: VGSLParams, charset, height: int) -> str:
+    """Write the weights as a pickle-free ``.npz``: :func:`leaves` as
+    arr_000 ..., and a JSON config with the spec, the height and the
+    charset."""
+    config = json.dumps({"spec": spec_of(params, height), "height": height,
+                         "n_conv": len(params.conv),
+                         "charset": list(charset)})
+    buf = io.BytesIO()
+    np.savez(buf, config=np.asarray(config), **{
+        f"arr_{i:03d}": t.detach().cpu().numpy()
+        for i, t in enumerate(leaves(params))})
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+    return path
+
+
+def load_vgsl(path: str):
+    """(VGSLParams on the CPU, charset, height) of a :func:`save_vgsl`
+    file, read with ``allow_pickle=False``."""
+    with np.load(path, allow_pickle=False) as z:
+        cfg = json.loads(str(z["config"]))
+        ts = [torch.from_numpy(z[k]) for k in sorted(z.files)
+              if k.startswith("arr_")]
+    return from_leaves(ts, cfg["n_conv"]), cfg["charset"], cfg["height"]

@@ -93,7 +93,10 @@ def _resolve_recognizer(ocropus_model, backend, device):
     if isinstance(ocropus_model, str):
         from ..models.recognizer import SeqRecognizer
 
-        rec = SeqRecognizer.from_pyrnn(ocropus_model, device=device)
+        load = (SeqRecognizer.from_vgsl
+                if ocropus_model.endswith(".vgsl.npz")
+                else SeqRecognizer.from_pyrnn)
+        rec = load(ocropus_model, device=device)
         rec.normalize_on_device = _normalizes_on_device(ocropus_model,
                                                         backend, rec.device)
         return rec
@@ -143,8 +146,8 @@ def process(raw_image, transcript, ocropus_model=None, seq_align_params=None,
     """Align ``transcript`` to the text-layer ``raw_image``.
 
     raw_image: (H, W[, C]) uint8/bool numpy array. ``ocropus_model``: a
-    ``.pyrnn(.gz)`` path (loaded onto ``device``) or a ready
-    ``SeqRecognizer``. ``device``: torch device of the OCR stage, of the
+    ``.pyrnn(.gz)`` or ``.vgsl.npz`` path (loaded onto ``device``), or a
+    ready ``SeqRecognizer``. ``device``: torch device of the OCR stage, of the
     device raster and of the device NW fill (None: the card; it raises
     when there is none). ``backend``: "hybrid" (the raster of
     :mod:`..ops.device` on a CUDA card, the native C++ raster on a CPU
